@@ -15,7 +15,18 @@ Phases, each fatal on failure:
      configuration (2000 features, 8 levels, 65536 points, 256 keyframes,
      2048-landmark local window; local mapping and relocalization off):
      the run must stay OK with no frame lost, keep ATE-RMSE within 1% of
-     the path length, and launch the kernel at least twice per frame.
+     the path length, and launch the kernel at least twice per frame;
+  5. drive the mapping path at the same configuration with local mapping
+     on and a keyframe every 4 frames (the reference's pinned cadence)
+     over 40 frames: OK, no frame lost, one mapping step per keyframe
+     after the first, >= 8 keyframes, no non-finite BA revert, a bounded
+     rate of guarded BA iterations, steps that create landmarks and BA
+     windows with inlier edges, ATE within 1% of the path, >= 2 kernel
+     launches per frame. Then one mapping step from identical copies of
+     the final map on the card and on the CPU: the integer tables after
+     cull, triangulate and fuse equal; after local BA, keyframe poses
+     within 1e-3, 99% of the window's landmarks within 1e-3 and inlier
+     masks >= 99% equal.
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -24,6 +35,7 @@ result, when no CUDA device is present. Uses no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -33,6 +45,8 @@ ANGLE_ATOL = 1e-3    # rad; the repo's kernel tolerance (tests/test_orb_pallas.p
 BIT_AGREE = 0.995    # descriptor bits; same source
 N_FRAMES = 40
 KITTI_W, KITTI_H = 1241, 376
+MAP_POSE_ATOL = 1e-3   # card vs CPU after local BA (tests/test_torch_gpu.py)
+MAP_INLIER_AGREE = 0.99
 
 
 def card_line() -> str:
@@ -169,12 +183,14 @@ def main() -> None:
     if failed:
         raise SystemExit(f"chip_smoke: main path failed: {failed}")
 
+    map_launches = mapping_phase(st, frames, gt, card)
+
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
         "route": "cuda",
         "source": "splslam_tpu_torch/csrc/orb_describe.cu",
         "replaces": "splslam_tpu/ops/orb_pallas.py:172",
-        "launches": launches,
+        "launches": launches + map_launches,
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -185,6 +201,141 @@ def main() -> None:
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+def mapping_phase(st, frames, gt, card):
+    """Phase 5. Returns the kernel launches during the mapping run."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu.io.synthetic import ate_rmse, path_length
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.slam import mapping_ops as MO
+    from splslam_tpu_torch.slam.map import KeyFrames
+    from splslam_tpu_torch.slam.system import Sensor, System, TrackingState
+
+    st = dataclasses.replace(st, enable_local_mapping=True, force_kf_every=4)
+    sysm = System(st, Sensor.STEREO, "cuda")
+    steps, map_ms = [], []
+    run_step = MO.mapping_step
+
+    def recorded_step(m, kf, *args, **kw):
+        n0 = m.n_pts.clone()
+        m, stats = run_step(m, kf, *args, **kw)
+        steps.append((n0, stats.clone()))
+        return m, stats
+
+    on_keyframe = sysm.mapper.on_keyframe
+
+    def timed_on_keyframe(kf):
+        n = sysm.mapper.n_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_keyframe(kf)
+        torch.cuda.synchronize()
+        if sysm.mapper.n_steps > n:
+            map_ms.append((time.perf_counter() - t0) * 1e3)
+
+    sysm.mapper.on_keyframe = timed_on_keyframe
+    MO.mapping_step = recorded_step
+    times = []
+    try:
+        OK.orb_describe.launches = 0
+        for i, (l, r) in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sysm.track_stereo(l, r, i * 0.1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        state = sysm.get_tracking_state()
+        launches = OK.orb_describe.launches
+    finally:
+        MO.mapping_step = run_step
+    health = sysm.health()
+    est = sysm.poses()
+    n_lost = sum(e.lost for e in sysm.trajectory)
+    ate = ate_rmse(est, gt)
+    gate = 0.01 * path_length(gt)
+    n_steps = sysm.mapper.n_steps
+    created = [int(s[0]) - int(n0) for n0, s in steps]
+    inliers = [int(s[2]) for _, s in steps]
+    print(f"mapping path: {len(frames)} frames, state {state.name}, lost {n_lost}, "
+          f"keyframes {sysm.n_kfs}, mapping steps {n_steps}, landmarks "
+          f"{sysm.n_pts}, ATE {ate:.5f} (gate {gate:.5f}), kernel launches "
+          f"{launches}, health {health}")
+    print(f"mapping steps: landmarks created {created}, BA inlier edges "
+          f"{inliers}, edges {[int(s[1]) for _, s in steps]}")
+    print(f"mapping: {np.median(map_ms):.2f} ms/keyframe median over "
+          f"{len(map_ms)} steps (synced around on_keyframe; all "
+          f"{[round(t, 1) for t in map_ms]}); "
+          f"track_stereo {np.median(times[10:]):.2f} ms/frame median over "
+          f"frames 10-{len(frames) - 1}, keyframe frames included, on {card}")
+    checks = {
+        "state OK": state == TrackingState.OK,
+        "no frame lost": n_lost == 0,
+        "poses finite, one per frame": est.shape == (len(frames), 4, 4)
+        and bool(np.isfinite(est).all()),
+        "n_steps == n_kfs - 1": n_steps == sysm.n_kfs - 1 == len(steps),
+        "n_kfs >= 8": sysm.n_kfs >= 8,
+        "mapping_state_revert == 0": health["mapping_state_revert"] == 0,
+        "mapping_guarded <= max(3, steps // 25)":
+            health["mapping_guarded"] <= max(3, n_steps // 25),
+        "a step created landmarks": max(created, default=0) > 0,
+        "a BA had inlier edges": max(inliers, default=0) > 0,
+        "ATE within 1% of path": ate <= gate,
+        ">= 2 kernel launches per frame": launches >= 2 * len(frames),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: mapping path failed: {failed}")
+
+    # One step on the card and on the CPU from identical copies of the map.
+    kf = sysm.n_kfs - 1
+    kb = max(32, 1 << (sysm.n_kfs - 1).bit_length())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = sysm.map.to(dev)
+        m = m._replace(kfs=KeyFrames(*[x[:kb] for x in m.kfs]))
+        m, _ = MO.map_upkeep(m, kf, sysm.cam, sysm.scales.to(dev),
+                             st.scale_factor, st.n_levels)
+        ints = {"n_pts": m.n_pts, "pts.valid": m.pts.valid,
+                "pts.recent": m.pts.recent, "pts.n_obs": m.pts.n_obs,
+                "pts.first_kf": m.pts.first_kf, "pts.desc": m.pts.desc,
+                "kfs.lm_idx": m.kfs.lm_idx, "kfs.valid": m.kfs.valid}
+        ints = {k: v.to("cpu", copy=True) for k, v in ints.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, prob, res = MO.local_ba(m, kf, sysm.cam, st.scale_factor, st.n_levels)
+        torch.cuda.synchronize()
+        out[dev] = (ints, prob, res, (time.perf_counter() - t0) * 1e3)
+    (ig, pg, rg, ba_ms), (ic, pc, rc, _) = out["cuda"], out["cpu"]
+    int_diff = {k: int((ig[k] != ic[k]).sum()) for k in ig}
+    pose_err = float((rg.Tcw.cpu() - rc.Tcw).abs().max())
+    d = (rg.xyz.cpu() - rc.xyz).norm(dim=-1)[pc.lm_ok]
+    lm_q99 = float(torch.quantile(d, 0.99))
+    agree = float((rg.e_inlier.cpu() == rc.e_inlier)[pc.e_ok].float().mean())
+    solve_ms = cuda_ms(lambda: MO.ba_solve(sysm.cam, pg, n_free=MO.N_WINDOW),
+                       reps=5, warmup=1)
+    print(f"mapping step card vs CPU (kf {kf}): integer tables differing "
+          f"{int_diff}; BA edges {int(pc.e_ok.sum())}, window landmarks "
+          f"{int(pc.lm_ok.sum())}, pose max abs err {pose_err:.3e}, landmark "
+          f"err q99 {lm_q99:.3e} max {float(d.max()):.3e}, inlier agreement "
+          f"{agree:.5f}, revert {int(rg.n_state_revert)}/{int(rc.n_state_revert)}")
+    print(f"local BA stage (window, landmark upkeep, solve, write-back): "
+          f"{ba_ms:.2f} ms synced; ba_solve alone {solve_ms:.2f} ms (CUDA "
+          f"events, median of 5) on {card}")
+    checks = {
+        "integer tables equal after cull/create/fuse": not any(int_diff.values()),
+        "BA edge masks equal": bool((pg.e_ok.cpu() == pc.e_ok).all()),
+        "BA poses within 1e-3": pose_err <= MAP_POSE_ATOL,
+        "99% of landmarks within 1e-3": lm_q99 <= MAP_POSE_ATOL,
+        "inlier masks >= 99% equal": agree >= MAP_INLIER_AGREE,
+        "no revert": int(rg.n_state_revert) == int(rc.n_state_revert) == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: mapping step card vs CPU failed: {failed}")
+    return launches
 
 
 if __name__ == "__main__":

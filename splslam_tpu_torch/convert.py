@@ -19,6 +19,7 @@ import torch
 
 from splslam_tpu_torch.ops.lines import LineFeatures
 from splslam_tpu_torch.ops.orb import OrbFeatures
+from splslam_tpu_torch.optim.ba import BAProblem, BAResult
 from splslam_tpu_torch.slam.frame import FrameData
 from splslam_tpu_torch.slam.map import KeyFrames, MapLines, MapPoints, MapState
 from splslam_tpu_torch.slam.pipeline import StepState
@@ -28,15 +29,19 @@ from splslam_tpu_torch.slam.tracking import LocalWindow
 _U32_FIELDS = frozenset({"desc", "ldesc"})
 
 
-def _tensor(x, device) -> torch.Tensor:
+def _tensor(x, device) -> torch.Tensor | None:
     """A fresh copy: the port updates its tables in place."""
+    if x is None:
+        return None
     a = np.array(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.from_numpy(a).to(device)
 
 
-def _array(name: str, t: torch.Tensor) -> np.ndarray:
+def _array(name: str, t: torch.Tensor | None) -> np.ndarray | None:
+    if t is None:
+        return None
     a = t.detach().cpu().numpy()
     return a.view(np.uint32) if name in _U32_FIELDS else a
 
@@ -102,3 +107,15 @@ def step_state_to_numpy(s: StepState) -> StepState:
 
 def local_window_to_numpy(w: LocalWindow) -> LocalWindow:
     return _tree_to(w)
+
+
+def ba_problem_from_numpy(p, device) -> BAProblem:
+    return _from(BAProblem, p, device)
+
+
+def ba_problem_to_numpy(p: BAProblem) -> BAProblem:
+    return _tree_to(p)
+
+
+def ba_result_to_numpy(r: BAResult) -> BAResult:
+    return _tree_to(r)

@@ -1,0 +1,346 @@
+"""Local bundle adjustment: Schur-complement Levenberg-Marquardt (port of
+splslam_tpu/optim/ba.py, points only).
+
+The problem is an edge table (one row per observation: camera slot,
+landmark slot, measurement, information, validity). Mono edges are
+2-dof reprojection residuals (chi2 5.991); stereo edges add the
+right-image u for a 3-dof residual (chi2 7.815). Per-edge Jacobian
+blocks are Huber-weighted and summed into one (camera band, landmark)
+cell buffer; the camera system is reduced by the Schur complement on
+the 3x3 landmark blocks and solved densely; landmarks follow by
+back-substitution. Two rounds of five LM iterations, with a chi2
+re-classification of the edges between rounds.
+
+The LM accept/reject, the damping schedule and every guard are
+`torch.where` selections on the device: the solve never reads a value
+back to the host. Everything is float32; keep TF32 off on a GPU. The
+line-edge fields of `BAProblem` stay None on this slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from splslam_tpu_torch.geometry import se3
+from splslam_tpu_torch.geometry.camera import Camera
+
+
+def _triu_maps(n: int):
+    """(pack, unpack) index lists between a row-major flattened symmetric
+    [n,n] block and its upper-triangle vector of n(n+1)/2 entries."""
+    pack, slot = [], {}
+    for i in range(n):
+        for j in range(i, n):
+            slot[(i, j)] = len(pack)
+            pack.append(i * n + j)
+    unpack = [slot[(min(i, j), max(i, j))] for i in range(n) for j in range(n)]
+    return pack, unpack
+
+
+_TRIU6, _FULL6 = _triu_maps(6)
+_TRIU3, _FULL3 = _triu_maps(3)
+
+CHI2_MONO = 5.991    # 2-dof 95% (reference Optimizer.cc:2591)
+CHI2_STEREO = 7.815  # 3-dof 95% (reference Optimizer.cc:2592)
+LM_DAMPING = 1e-4    # initial LM lambda, halved on accept, x4 on reject
+
+
+class BAProblem(NamedTuple):
+    """Fixed-shape BA window. Cameras are slots 0..C-1 (free slots
+    first); `cam_free[c]` marks cameras that receive updates, fixed ones
+    still contribute residuals. Landmarks are slots 0..L-1. Invalid edges
+    have e_ok False and contribute nothing."""
+
+    Tcw: torch.Tensor           # [C,4,4]
+    cam_free: torch.Tensor      # [C] bool
+    xyz: torch.Tensor           # [L,3]
+    lm_ok: torch.Tensor         # [L] bool
+    e_cam: torch.Tensor         # [E] int32
+    e_lm: torch.Tensor          # [E] int32
+    e_uv: torch.Tensor          # [E,2]
+    e_ur: torch.Tensor          # [E] right-image u; < 0 => mono edge
+    e_inv_sigma2: torch.Tensor  # [E]
+    e_ok: torch.Tensor          # [E] bool
+    e_coef: torch.Tensor | None = None  # line edges: later slice
+    e_line: torch.Tensor | None = None
+    e_pair: torch.Tensor | None = None
+
+
+class BAResult(NamedTuple):
+    Tcw: torch.Tensor        # [C,4,4] updated poses
+    xyz: torch.Tensor        # [L,3] updated landmarks
+    e_inlier: torch.Tensor   # [E] bool — survived the final chi2 gate
+    chi2: torch.Tensor       # [E] final per-edge chi2
+    total_chi2: torch.Tensor
+    # Accepted LM iterations whose camera step came out non-finite and
+    # was zeroed (transient; the e2e gates bound their rate).
+    n_guarded: torch.Tensor
+    # Cameras or landmarks that ended non-finite and were reverted to
+    # their input (must be 0).
+    n_state_revert: torch.Tensor
+    # Single-landmark step zeroings on a singular 3x3 block (benign).
+    n_lm_singular: torch.Tensor
+
+
+def _inv3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse (adjugate / det, det floored at
+    1e-20 in magnitude as the reference does)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    Cc = b * f - c * e
+    D = f * g - d * i
+    E = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I = a * e - b * d
+    det = a * A + b * D + c * G
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-20, det, 1e-20)
+    adj = torch.stack([torch.stack([A, B, Cc], dim=-1),
+                       torch.stack([D, E, F], dim=-1),
+                       torch.stack([G, H, I], dim=-1)], dim=-2)
+    return adj * inv_det[..., None, None]
+
+
+def solve_dense(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dense Cholesky solve of the damped reduced camera system with the
+    reference's armor: Jacobi pre-scaling (solve D A D y = D b, x = D y
+    with D = diag(A)^-1/2, which keeps intermediates near 1) and a pivot
+    floor relative to the scaled diagonal, max(d, 1e-10 |A_jj| + 1e-20),
+    so a cancellation-driven pivot gives a bounded column instead of a
+    breakdown. `torch.linalg.cholesky` has no such floor.
+
+    The reference unrolls every scalar operation (n = 48: ~20k ops);
+    here each column of L is one vector update, then two triangular
+    solves. The sums run in another order than the reference's."""
+    n = A.shape[0]
+    dg = torch.sqrt(torch.clamp(torch.abs(torch.diagonal(A)), min=1e-12))
+    Dinv = 1.0 / dg
+    A = A * Dinv[:, None] * Dinv[None, :]
+    b = b * Dinv
+    floor = 1e-10 * torch.abs(torch.diagonal(A)) + 1e-20
+    L = torch.zeros_like(A)
+    for j in range(n):
+        col = A[j:, j] - L[j:, :j] @ L[j, :j]
+        Ljj = torch.sqrt(torch.maximum(col[0], floor[j]))
+        L[j, j] = Ljj
+        L[j + 1:, j] = col[1:] * (1.0 / Ljj)
+    y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.T, y, upper=True)
+    return x[:, 0] * Dinv
+
+
+def _bsum(a, b, dim):
+    return torch.sum(a * b, dim=dim)
+
+
+def _edge_terms(Tcw_all, xyz_all, cam: Camera, p: BAProblem):
+    """Residuals r [E,3], J_c [E,3,6], J_p [E,3,3], chi2 [E], depth-ok [E].
+    Mono edges use rows 0..1 (row 2 zeroed through the stereo mask)."""
+    Tcw = Tcw_all[p.e_cam.long()]
+    X = xyz_all[p.e_lm.long()]
+    R = Tcw[:, :3, :3]
+    t = Tcw[:, :3, 3]
+    pc = _bsum(R, X[:, None, :], -1) + t
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    z_ok = z > 1e-3
+    zs = torch.where(z_ok, z, 1.0)
+    iz = 1.0 / zs
+    iz2 = iz * iz
+    u = cam.fx * x * iz + cam.cx
+    v = cam.fy * y * iz + cam.cy
+    ur = u - cam.bf * iz
+    stereo = p.e_ur >= 0
+    r = torch.stack([u - p.e_uv[:, 0], v - p.e_uv[:, 1],
+                     torch.where(stereo, ur - p.e_ur, 0.0)], dim=-1)
+    zeros = torch.zeros_like(x)
+    srow = torch.stack([cam.fx * iz, zeros, -(cam.fx * x - cam.bf) * iz2],
+                       dim=-1) * stereo[:, None].to(torch.float32)
+    row_u = torch.stack([cam.fx * iz, zeros, -cam.fx * x * iz2], dim=-1)
+    row_v = torch.stack([zeros, cam.fy * iz, -cam.fy * y * iz2], dim=-1)
+    duv_dpc = torch.stack([row_u, row_v, srow], dim=1)      # [E,3,3]
+    # J_c = [duv_dpc | -duv_dpc hat(pc)], J_p = duv_dpc @ R.
+    hatp = se3.hat(pc)
+    J_rot = -_bsum(duv_dpc[:, :, :, None], hatp[:, None, :, :], 2)
+    J_c = torch.cat([duv_dpc, J_rot], dim=-1)                # [E,3,6]
+    J_p = _bsum(duv_dpc[:, :, :, None], R[:, None, :, :], 2)  # [E,3,3]
+    chi2 = torch.sum(r * r, dim=-1) * p.e_inv_sigma2
+    return r, J_c, J_p, chi2, z_ok
+
+
+def _huber_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
+    return torch.where(chi2 <= delta2, 1.0,
+                       torch.sqrt(delta2 / torch.clamp(chi2, min=1e-12)))
+
+
+def _gates(p: BAProblem) -> torch.Tensor:
+    """Per-edge chi2 gate, which is also the Huber delta^2 (points)."""
+    if p.e_coef is not None:
+        raise NotImplementedError("line edges: later slice")
+    return torch.where(p.e_ur >= 0, CHI2_STEREO, CHI2_MONO)
+
+
+def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
+             n_free: int | None = None) -> BAResult:
+    """Solve the BA window. `n_free`: count of leading camera slots that
+    are free (slots are packed free-first); defaults to all."""
+    C = p.Tcw.shape[0]
+    L = p.xyz.shape[0]
+    Cf = C if n_free is None else n_free
+    dev = p.Tcw.device
+    gate = _gates(p)
+    eye3 = torch.eye(3, device=dev)
+
+    # Every per-edge block goes into one (camera band, landmark) cell:
+    # free cameras are bands 0..Cf-1, everything else (fixed, frozen,
+    # invalid) band Cf, which still feeds the landmark blocks. A camera
+    # observes a landmark at most once, so a free band's cell holds one
+    # edge and the Schur cross blocks W are read off directly.
+    free_edge = (p.e_cam < Cf) & p.cam_free[p.e_cam.clamp(min=0).long()]
+    ec = torch.where(free_edge, p.e_cam, Cf)
+    cl = (ec * L + p.e_lm).long()
+
+    def assemble(Tcw_all, xyz_all, active):
+        """One linearization: the normal-equation pieces, the robust cost
+        (an active edge pushed behind the camera pays a large penalty
+        instead of vanishing), raw chi2 and depth-ok."""
+        r, J_c, J_p, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
+        live = active & z_ok
+        w = _huber_weight(chi2, gate) * p.e_inv_sigma2 * live.to(torch.float32)
+        rw = r * w[:, None]
+        g_c = _bsum(J_c, rw[:, :, None], 1)
+        g_p = _bsum(J_p, rw[:, :, None], 1)
+        Jcw = J_c * w[:, None, None]
+        Hcc_e = _bsum(Jcw[:, :, :, None], J_c[:, :, None, :], 1)
+        Hpp_e = _bsum(J_p[:, :, :, None] * w[:, None, None, None],
+                      J_p[:, :, None, :], 1)
+        Hcp_e = _bsum(Jcw[:, :, :, None], J_p[:, :, None, :], 1)
+        payload = torch.cat([Hcc_e.reshape(-1, 36)[:, _TRIU6], g_c,
+                             Hpp_e.reshape(-1, 9)[:, _TRIU3], g_p,
+                             Hcp_e.reshape(-1, 18)], dim=-1)     # [E,54]
+        acc = torch.zeros(((Cf + 1) * L, 54), device=dev)
+        acc.index_add_(0, cl, payload)
+        acc = acc.reshape(Cf + 1, L, 54)
+        acc_c = torch.sum(acc[:Cf, :, :27], dim=1)
+        Hcc = acc_c[:, _FULL6].reshape(Cf, 6, 6)
+        bc = acc_c[:, 21:]
+        acc_p = torch.sum(acc[:, :, 27:36], dim=0)
+        Hpp = acc_p[:, _FULL3].reshape(L, 3, 3)
+        bp = acc_p[:, 6:]
+        W2 = acc[:Cf, :, 36:].reshape(Cf, L, 6, 3).permute(0, 2, 1, 3) \
+            .reshape(Cf * 6, L * 3)
+        rho = torch.where(chi2 <= gate, chi2,
+                          2.0 * torch.sqrt(gate * torch.clamp(chi2, min=0.0))
+                          - gate)
+        penalty = torch.maximum(2.0 * torch.sqrt(gate * 1e8), rho)
+        cost = torch.sum(torch.where(live, rho,
+                                     torch.where(active, penalty, 0.0)))
+        return (Hcc, bc, Hpp, bp, W2), cost, chi2, z_ok
+
+    def gn_step(Tcw_all, xyz_all, sys, lam):
+        """Propose an LM step from a cached linearization."""
+        Hcc, bc, Hpp, bp, W2 = sys
+        hdiag = torch.diagonal(Hpp, dim1=1, dim2=2)
+        lm_active = p.lm_ok & (hdiag.sum(-1) > 0)
+        dHpp = eye3[None] * torch.clamp(hdiag, min=1e-8)[:, None, :]
+        Hpp_d = (Hpp + lam * dHpp + 1e-6 * eye3
+                 + torch.where(lm_active, 0.0, 1.0)[:, None, None] * eye3)
+        iHpp = _inv3(Hpp_d)
+        # A non-finite or astronomically large block inverse is frozen
+        # for this iteration (NaN compares False, so it is caught too).
+        lm_sing = ~torch.all(torch.abs(iHpp.reshape(L, -1)) < 1e12, dim=-1)
+        iHpp = torch.where(lm_sing[:, None, None], 0.0, iHpp)
+
+        # Schur: S = Hcc - W iHpp W^T ; rhs = bc - W iHpp bp.
+        W2v = W2.reshape(Cf * 6, L, 3)
+        WiH2 = torch.sum(W2v[:, :, :, None] * iHpp[None], dim=2) \
+            .reshape(Cf * 6, L * 3)
+        S = WiH2 @ W2.T
+        S_full = torch.zeros((Cf, 6, Cf, 6), device=dev)
+        ar = torch.arange(Cf, device=dev)
+        S_full[ar, :, ar, :] = Hcc
+        A = S_full.reshape(Cf * 6, Cf * 6) - S
+        rhs = bc.reshape(-1) - WiH2 @ bp.reshape(-1)
+        A = A + lam * torch.diag(torch.clamp(torch.diagonal(A), min=1.0))
+        dx_c = -solve_dense(A, rhs).reshape(Cf, 6)
+        ok = torch.all(torch.isfinite(dx_c))
+        dx_c = torch.where(ok, dx_c, 0.0)
+
+        # Back-substitute landmarks: Hpp dx_p = -bp - W^T dx_c.
+        Wt_dxc = (W2.T @ dx_c.reshape(-1)).reshape(L, 3)
+        dx_p = _bsum(iHpp, (-(bp + Wt_dxc))[:, None, :], -1)
+        dxp_fin = torch.all(torch.isfinite(dx_p), dim=-1)
+        n_bad = (~ok).to(torch.int32)
+        n_bad_lm = torch.sum(((lm_active & ~dxp_fin) | (p.lm_ok & lm_sing))
+                             .to(torch.int32))
+        dx_p = torch.where((lm_active & dxp_fin)[:, None], dx_p, 0.0)
+        # Trust regions: a landmark step at most half the point's
+        # distance to the free cameras' centroid (plus 0.5); a camera step
+        # at most half the window's extent in translation, 0.5 rad in
+        # rotation.
+        Rf = Tcw_all[:Cf, :3, :3]
+        C_f = -_bsum(Rf.transpose(1, 2), Tcw_all[:Cf, :3, 3][:, None, :], -1)
+        centroid = torch.mean(C_f, dim=0)
+        max_step = 0.5 * (1.0 + torch.linalg.norm(xyz_all - centroid, dim=-1,
+                                                  keepdim=True))
+        stepn = torch.linalg.norm(dx_p, dim=-1, keepdim=True)
+        dx_p = dx_p * torch.clamp(max_step / torch.clamp(stepn, min=1e-9),
+                                  max=1.0)
+        ext = 0.5 * (1.0 + torch.max(torch.linalg.norm(C_f - centroid, dim=-1)))
+        tn_c = torch.linalg.norm(dx_c[:, :3], dim=-1, keepdim=True)
+        rn_c = torch.linalg.norm(dx_c[:, 3:], dim=-1, keepdim=True)
+        dx_c = dx_c * torch.minimum(
+            torch.clamp(ext / torch.clamp(tn_c, min=1e-9), max=1.0),
+            torch.clamp(0.5 / torch.clamp(rn_c, min=1e-9), max=1.0))
+        dx_c = dx_c * p.cam_free[:Cf, None].to(torch.float32)
+        Tcw_f = se3.se3_retract(Tcw_all[:Cf], dx_c)
+        Tcw_new = torch.cat([Tcw_f, Tcw_all[Cf:]], dim=0)
+        return Tcw_new, xyz_all + dx_p, n_bad, n_bad_lm
+
+    Tcw_all, xyz_all = p.Tcw, p.xyz
+    active = p.e_ok
+    lam = torch.full((), LM_DAMPING, dtype=torch.float32, device=dev)
+    ng = torch.zeros((), dtype=torch.int32, device=dev)
+    ngl = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(rounds):
+        # Linearize at the round's entry; afterwards only at accepted
+        # candidates. A rejected step retries the cached system with 4x
+        # the damping.
+        sys, cost, chi2, z_ok = assemble(Tcw_all, xyz_all, active)
+        for _ in range(iters):
+            cT, cX, n_bad, n_bad_lm = gn_step(Tcw_all, xyz_all, sys, lam)
+            sys_n, cost_n, chi2_n, zok_n = assemble(cT, cX, active)
+            accept = cost_n < cost
+            Tcw_all = torch.where(accept, cT, Tcw_all)
+            xyz_all = torch.where(accept, cX, xyz_all)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0),
+                              1e-6, 1e6)
+            sys = tuple(torch.where(accept, a, b) for a, b in zip(sys_n, sys))
+            cost = torch.where(accept, cost_n, cost)
+            chi2 = torch.where(accept, chi2_n, chi2)
+            z_ok = torch.where(accept, zok_n, z_ok)
+            # Only accepted damage counts: a rejected non-finite
+            # candidate leaves the state unharmed.
+            ng = ng + torch.where(accept, n_bad, 0)
+            ngl = ngl + torch.where(accept, n_bad_lm, 0)
+        active = p.e_ok & (chi2 <= gate) & z_ok
+
+    # No outcome may poison the map: a camera or point that ends
+    # non-finite reverts to its input.
+    cam_fin = torch.all(torch.isfinite(Tcw_all.reshape(C, -1)), dim=-1)
+    Tcw_all = torch.where(cam_fin[:, None, None], Tcw_all, p.Tcw)
+    pt_fin = torch.all(torch.isfinite(xyz_all), dim=-1)
+    xyz_all = torch.where(pt_fin[:, None], xyz_all, p.xyz)
+    nsr = torch.sum((~cam_fin).to(torch.int32)) \
+        + torch.sum((p.lm_ok & ~pt_fin).to(torch.int32))
+    _, _, _, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
+    inlier = p.e_ok & (chi2 <= gate) & z_ok
+    total = torch.sum(torch.where(inlier, chi2, 0.0))
+    return BAResult(Tcw_all, xyz_all, inlier, chi2, total,
+                    n_guarded=ng.to(torch.int32), n_state_revert=nsr.to(torch.int32),
+                    n_lm_singular=ngl.to(torch.int32))

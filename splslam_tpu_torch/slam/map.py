@@ -129,6 +129,14 @@ class MapState(NamedTuple):
     n_lns: torch.Tensor
     n_kfs: torch.Tensor
 
+    def to(self, device) -> "MapState":
+        """A copy on `device` (always a copy: the tables are updated in
+        place)."""
+        def copy(x):
+            return type(x)(*map(copy, x)) if isinstance(x, tuple) else \
+                x.to(device, copy=True)
+        return copy(self)
+
     @staticmethod
     def empty(p: int, q: int, k: int, n: int, l: int, device) -> "MapState":
         zero = lambda: torch.zeros((), dtype=torch.int32, device=device)
@@ -143,8 +151,8 @@ def scale_band(depth: torch.Tensor, octave: torch.Tensor, scale_factor: float,
                n_levels: int):
     """Scale-invariance distance band of a new landmark (reference
     MapPoint::UpdateNormalAndDepth)."""
-    level_scale = torch.pow(torch.tensor(scale_factor, dtype=torch.float32,
-                                         device=depth.device), octave.float())
+    level_scale = torch.pow(torch.full((), scale_factor, dtype=torch.float32,
+                                       device=depth.device), octave.float())
     dmax = depth * level_scale
     dmin = dmax / (scale_factor ** (n_levels - 1))
     return dmin, dmax
@@ -156,7 +164,7 @@ def predict_octave(dist: torch.Tensor, dmax: torch.Tensor, scale_factor: float,
     MapPoint::PredictScale)."""
     ratio = torch.clamp(dmax / torch.clamp(dist, min=1e-6), min=1e-6)
     lv = torch.ceil(torch.log(ratio) / torch.log(
-        torch.tensor(scale_factor, dtype=torch.float32, device=dist.device)))
+        torch.full((), scale_factor, dtype=torch.float32, device=dist.device)))
     return torch.clamp(lv, 0, n_levels - 1).to(torch.int32)
 
 
@@ -268,13 +276,27 @@ def update_point_stats2(st: MapState, visible_ids: torch.Tensor,
     return st
 
 
+def landmark_membership(query: torch.Tensor, P: int) -> torch.Tensor:
+    """[P] bool: which landmarks the observation row `query` (-1 = none)
+    holds, by the reference's rule. The reference scatters `q >= 0` at
+    `clip(q, 0)`, so landmark 0 and every -1 all write slot 0, and XLA's
+    CPU scatter keeps the last write: slot 0 is True exactly when the
+    last entry of `query` that is <= 0 is a 0 (False when there is
+    none)."""
+    dev = query.device
+    member = torch.zeros((P + 1,), dtype=torch.bool, device=dev)
+    member[torch.where(query > 0, query, P).long()] = True
+    pos = torch.arange(query.shape[0], device=dev)
+    last = torch.max(torch.where(query <= 0, pos, -1))
+    member[0] = (last >= 0) & (query[last.clamp(min=0)] == 0)
+    return member[:P]
+
+
 def covisibility_counts(st: MapState, lm_idx_query: torch.Tensor) -> torch.Tensor:
     """Shared-landmark counts between a query observation set and every
-    keyframe (reference KeyFrame::UpdateConnections weights). [K] int32."""
-    P = st.pts.xyz.shape[0]
-    member = torch.zeros((P + 1,), dtype=torch.bool, device=lm_idx_query.device)
-    member[torch.where(lm_idx_query >= 0, lm_idx_query, P).long()] = True
-    member = member[:P]
+    keyframe (reference KeyFrame::UpdateConnections weights), with the
+    reference's membership rule for landmark 0. [K] int32."""
+    member = landmark_membership(lm_idx_query, st.pts.xyz.shape[0])
     kf_lm = st.kfs.lm_idx
     hit = member[kf_lm.clamp(min=0).long()] & (kf_lm >= 0)
     return torch.sum(hit.to(torch.int32), dim=1, dtype=torch.int32) \

@@ -1,0 +1,658 @@
+"""Local mapping on the device: point culling, triangulation, fuse, local
+BA and keyframe culling (port of splslam_tpu/slam/mapping_ops.py, stereo
+points; the line stages belong to a later slice).
+
+One call of `mapping_step` per keyframe runs the reference LocalMapping
+thread's stages as batched tensor passes:
+  1. MapPointCulling (src/LocalMapping.cc:408): the 3-strike probation.
+  2. CreateNewMapPoints (:484): epipolar-gated descriptor matching
+     against the best covisible neighbours and DLT triangulation.
+  3. SearchInNeighbors fuse (:1249): project this keyframe's landmarks
+     into the neighbours and merge duplicates by an index remap.
+  4. Local BA (src/Optimizer.cc:2383) over the covisibility window with
+     fixed 2-ring anchors; outlier observations are erased afterwards.
+  5. KeyFrameCulling (:1577).
+
+The tables are updated IN PLACE (the reference returns new immutable
+states); a caller must treat the state it passed in as consumed.
+
+Scatter rules. Where the reference's scatter-set can receive one index
+from several rows, XLA's CPU scatter keeps the last write; the port
+makes that explicit and device-independent: the highest row index wins
+(`_last_writer`), on the CPU and on CUDA alike (`index_put_` on CUDA
+makes no promise). Rows that write nothing go to a spare slot past the
+table's end (`_set_rows`), never to -1.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from splslam_tpu_torch.geometry.camera import Camera
+from splslam_tpu_torch.ops import match as M
+from splslam_tpu_torch.optim.ba import BAProblem, _inv3, ba_solve
+from splslam_tpu_torch.slam.map import (KeyFrames, MapState, covisibility_counts,
+                                        predict_octave, scale_band)
+from splslam_tpu_torch.slam.pipeline import _stable_top
+
+# Static window geometry (capacities, not behaviour), as the reference's.
+N_WINDOW = 8      # free cameras in local BA (1-ring cap)
+N_FIXED = 8       # fixed anchor cameras (2-ring cap)
+N_NEIGH = 4       # neighbours for triangulation / fuse
+L_WINDOW = 8192   # landmark slots in the BA window
+MAX_TRI = 256     # new landmarks per (keyframe, neighbour) pair
+
+# mapping_step stats vector layout (read by slam/local_mapping.py):
+# [0:4]   n_pts, n_edges, n_inlier_edges, total_chi2
+# [4:20]  post-BA Tcw of the stepped keyframe (row-major 4x4)
+# then MAX_KF_CULL blocks of 17: [culled_id (-1 none), Tcp row-major 4x4]
+# then the three solver-health counters of optim/ba.BAResult.
+MAX_KF_CULL = 2
+MSTAT_POSE = 4
+MSTAT_CULL = 20
+MSTAT_GUARD = MSTAT_CULL + MAX_KF_CULL * 17
+MSTAT_REVERT = MSTAT_GUARD + 1
+MSTAT_LMSING = MSTAT_REVERT + 1
+MSTAT_LEN = MSTAT_LMSING + 1
+
+_N_LV = 8  # octave histogram width of keyframe culling (the reference's)
+
+
+def _last_writer(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
+    """For each target slot in [0, size): the highest row r with ok[r] and
+    idx[r] == slot, else -1 (the last write of a sequential scatter)."""
+    rows = torch.arange(idx.numel(), device=idx.device)
+    w = torch.full((size + 1,), -1, dtype=torch.long, device=idx.device)
+    w.scatter_reduce_(0, torch.where(ok, idx, size).reshape(-1).long(), rows,
+                      "amax")
+    return w[:size]
+
+
+def _scatter_set_last(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
+                      values: torch.Tensor) -> torch.Tensor:
+    """dst (1-D) with dst[idx[r]] = values[r] for rows with ok; where rows
+    share an index the highest row wins. Returns a new tensor."""
+    w = _last_writer(idx, ok, dst.shape[0])
+    return torch.where(w >= 0, values[w.clamp(min=0)].to(dst.dtype), dst)
+
+
+def _set_rows(table: torch.Tensor, idx: torch.Tensor, values) -> None:
+    """In place: table[idx[r]] = values[r]; idx == len(table) marks a row
+    that writes nothing (it lands in a spare slot that is dropped). The
+    kept indices must be unique."""
+    cap = table.shape[0]
+    buf = torch.cat([table, table[:1]])
+    buf[idx.long()] = values.to(table.dtype) if torch.is_tensor(values) else values
+    table.copy_(buf[:cap])
+
+
+def _center(T: torch.Tensor) -> torch.Tensor:
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def _intrinsics(cam: Camera, device):
+    """(K, K^-1), both inverted on the host in float32 and sent without
+    waiting for the device queue (a plain host-to-device copy would
+    synchronize the stream)."""
+    K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
+                      [0.0, 0.0, 1.0]], dtype=torch.float32)
+    return (K.to(device, non_blocking=True),
+            torch.linalg.inv(K).to(device, non_blocking=True))
+
+
+def _topk_covisible(st: MapState, kf: int, k: int):
+    """Top-k other keyframes by shared-landmark count with keyframe `kf`
+    (reference KeyFrame::GetBestCovisibilityKeyFrames), ties to the lower
+    index. Returns (ids [k] int32, -1 below the reference's weight 15,
+    counts [k])."""
+    counts = covisibility_counts(st, st.kfs.lm_idx[kf])
+    counts[kf] = 0
+    k = min(k, counts.shape[0])
+    top_c, top_i = _stable_top(counts, k, largest=True)
+    ids = torch.where(top_c >= 15, top_i.to(torch.int32), -1)
+    return ids, top_c
+
+
+def cull_points(st: MapState, cur_kf: int, th_obs: int = 3) -> MapState:
+    """MapPointCulling (reference src/LocalMapping.cc:408-444) on the
+    tables: a landmark born at keyframe b is culled while on probation
+    (recent, age <= 3) if found/visible < 0.25 (with >= 4 visible), or at
+    age >= 2 with n_obs <= th_obs. Observations of culled landmarks are
+    dropped from every keyframe row."""
+    pts = st.pts
+    ratio = pts.n_found.float() / torch.clamp(pts.n_visible.float(), min=1.0)
+    age = cur_kf - pts.first_kf
+    probation = pts.recent & (age <= 3)
+    bad_ratio = probation & (ratio < 0.25) & (pts.n_visible >= 4)
+    bad_obs = (age >= 2) & probation & (pts.n_obs <= th_obs)
+    cull = pts.valid & (bad_ratio | bad_obs)
+    pts.valid.copy_(pts.valid & ~cull)
+    pts.recent.copy_(pts.recent & (age <= 3))
+    lm_idx = st.kfs.lm_idx
+    live = pts.valid[lm_idx.clamp(min=0).long()] & (lm_idx >= 0)
+    lm_idx.copy_(torch.where(live, lm_idx, -1))
+    return st
+
+
+def _epipolar_from_poses(Tcw1, Tcw2, cam: Camera):
+    """Fundamental matrix F12 mapping image-1 points to image-2 lines
+    (reference LocalMapping::ComputeF12)."""
+    R1, t1 = Tcw1[:3, :3], Tcw1[:3, 3]
+    R2, t2 = Tcw2[:3, :3], Tcw2[:3, 3]
+    R12 = R1 @ R2.T
+    t12 = -R12 @ t2 + t1
+    z = torch.zeros((), device=Tcw1.device)
+    tx = torch.stack([torch.stack([z, -t12[2], t12[1]]),
+                      torch.stack([t12[2], z, -t12[0]]),
+                      torch.stack([-t12[1], t12[0], z])])
+    _, Kinv = _intrinsics(cam, Tcw1.device)
+    return Kinv.T @ tx @ R12 @ Kinv
+
+
+class _TriOut(NamedTuple):
+    xyz: torch.Tensor      # [N,3] triangulated world points (kf feature rows)
+    ok: torch.Tensor       # [N] bool
+    nb_col: torch.Tensor   # [N] matched neighbour feature index, -1 none
+    quality: torch.Tensor  # [N] 1 - cos(parallax), -1 where not ok
+
+
+def _triangulate_pair(st: MapState, cam: Camera, scales: torch.Tensor, kf: int,
+                      nb: torch.Tensor, nb_valid: torch.Tensor) -> _TriOut:
+    """Match the unassociated features of `kf` against those of neighbour
+    `nb` under the epipolar constraint (mutual nearest neighbour, TH_LOW),
+    then DLT-triangulate and check depth, parallax, reprojection and scale
+    (reference CreateNewMapPoints, src/LocalMapping.cc:484-729)."""
+    kfs = st.kfs
+    T1, T2 = kfs.Tcw[kf], kfs.Tcw[nb]
+    F12 = _epipolar_from_poses(T1, T2, cam)
+    xy1, xy2 = kfs.xy[kf], kfs.xy[nb]
+    free1 = kfs.fvalid[kf] & (kfs.lm_idx[kf] < 0)
+    free2 = kfs.fvalid[nb] & (kfs.lm_idx[nb] < 0) & nb_valid
+
+    # Baseline longer than the stereo baseline (reference :529-545),
+    # bf / fx divided in float32 as the reference's f32 scalars are.
+    O1, O2 = _center(T1), _center(T2)
+    stereo_baseline = float(np.float32(cam.bf) / np.float32(cam.fx))
+    base_ok = torch.linalg.norm(O2 - O1) > stereo_baseline
+
+    x1h = torch.cat([xy1, torch.ones_like(xy1[:, :1])], dim=-1)
+    lines = x1h @ F12.T
+    num = (lines[:, None, 0] * xy2[None, :, 0] + lines[:, None, 1] * xy2[None, :, 1]
+           + lines[:, None, 2])
+    den = lines[:, 0:1] ** 2 + lines[:, 1:2] ** 2
+    dsq = num * num / torch.clamp(den, min=1e-12)
+    sig2_2 = kfs.sigma2[nb]
+    epi_ok = dsq < 3.84 * sig2_2[None, :]
+
+    d = M.masked_distances(M.hamming(kfs.desc[kf], kfs.desc[nb]), free1, free2,
+                           epi_ok)
+    mt, _ = M.nn_match(d, max_dist=M.TH_LOW, mutual=True)
+    matched = (mt >= 0) & base_ok
+    col = mt.clamp(min=0).long()
+    uv2 = xy2[col]
+
+    # Inhomogeneous DLT: w = 1, least squares over the 4 equations via
+    # the 3x3 normal equations (reference :594-611 uses an SVD).
+    K, _ = _intrinsics(cam, T1.device)
+    P1 = K @ T1[:3, :4]
+    P2 = K @ T2[:3, :4]
+    A_rows = torch.stack([xy1[:, 0, None] * P1[2] - P1[0],
+                          xy1[:, 1, None] * P1[2] - P1[1],
+                          uv2[:, 0, None] * P2[2] - P2[0],
+                          uv2[:, 1, None] * P2[2] - P2[1]], dim=1)   # [N,4,4]
+    Ah = A_rows[:, :, :3]
+    bh = -A_rows[:, :, 3]
+    AtA = torch.sum(Ah[:, :, :, None] * Ah[:, :, None, :], dim=1)
+    Atb = torch.sum(Ah * bh[:, :, None], dim=1)
+    Xw = torch.sum(_inv3(AtA) * Atb[:, None, :], dim=-1)
+
+    # Checks (reference :613-727).
+    pc1 = Xw @ T1[:3, :3].T + T1[:3, 3]
+    pc2 = Xw @ T2[:3, :3].T + T2[:3, 3]
+    z_ok = (pc1[:, 2] > 1e-3) & (pc2[:, 2] > 1e-3)
+    r1, r2 = Xw - O1, Xw - O2
+    cosp = torch.sum(r1 * r2, dim=-1) / torch.clamp(
+        torch.linalg.norm(r1, dim=-1) * torch.linalg.norm(r2, dim=-1), min=1e-9)
+    par_ok = cosp < 0.9998
+
+    def reproj_chi2(pc, uv, sig2):
+        zs = torch.clamp(pc[:, 2], min=1e-6)
+        u = cam.fx * pc[:, 0] / zs + cam.cx
+        v = cam.fy * pc[:, 1] / zs + cam.cy
+        return ((u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2) / sig2
+
+    rep_ok = ((reproj_chi2(pc1, xy1, kfs.sigma2[kf]) <= 5.991)
+              & (reproj_chi2(pc2, uv2, sig2_2[col]) <= 5.991))
+    d1 = torch.linalg.norm(r1, dim=-1)
+    d2 = torch.linalg.norm(r2, dim=-1)
+    ratio_d = d1 / torch.clamp(d2, min=1e-9)
+    ratio_o = scales[kfs.octave[kf].long()] / scales[kfs.octave[nb].long()][col]
+    scale_ok = (ratio_d < ratio_o * 1.5) & (ratio_d > ratio_o / 1.5)
+
+    ok = matched & z_ok & par_ok & rep_ok & scale_ok
+    return _TriOut(xyz=Xw, ok=ok, nb_col=torch.where(ok, mt, -1),
+                   quality=torch.where(ok, 1.0 - cosp, -1.0))
+
+
+def _alloc_points(st: MapState, scale_factor: float, n_levels: int, kf: int,
+                  nb: torch.Tensor, tri: _TriOut, max_new: int) -> MapState:
+    """Append the triangulated landmarks (at most `max_new`, largest
+    parallax first) to the point table and register the observation in
+    both keyframe rows."""
+    kfs = st.kfs
+    n = tri.ok.shape[0]
+    dev = tri.ok.device
+    create = tri.ok
+    order_key = torch.where(create, -tri.quality, 1e30)
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    rank[torch.argsort(order_key, stable=True)] = torch.arange(
+        n, dtype=torch.int32, device=dev)
+    create = create & (rank < max_new)
+    slot_off = torch.cumsum(create.to(torch.int32), 0, dtype=torch.int32) - 1
+    slots = st.n_pts + slot_off
+    cap = st.pts.xyz.shape[0]
+    create = create & (slots < cap)
+    n_new = torch.sum(create.to(torch.int32), dtype=torch.int32)
+    sl = torch.where(create, slots, cap)
+
+    O1 = _center(kfs.Tcw[kf])
+    view = tri.xyz - O1
+    dist = torch.linalg.norm(view, dim=-1)
+    normal = view / torch.clamp(dist[:, None], min=1e-9)
+    dmin, dmax = scale_band(dist, kfs.octave[kf], scale_factor, n_levels)
+    # Stereo features count 2 per observation (MapPoint::AddObservation).
+    nb_col = tri.nb_col.clamp(min=0).long()
+    obs_w = (torch.where(kfs.u_right[kf] >= 0, 2, 1)
+             + torch.where(kfs.u_right[nb][nb_col] >= 0, 2, 1))
+
+    pts = st.pts
+    for table, val in ((pts.xyz, tri.xyz), (pts.desc, kfs.desc[kf]),
+                       (pts.normal, normal), (pts.dmin, dmin), (pts.dmax, dmax),
+                       (pts.n_obs, obs_w), (pts.n_visible, 1), (pts.n_found, 1),
+                       (pts.first_kf, kf), (pts.valid, True), (pts.recent, True)):
+        _set_rows(table, sl, val)
+    lm_kf = torch.where(create, slots, kfs.lm_idx[kf])
+    # Mutual matching gives created rows distinct columns; the others
+    # write -1, which max leaves alone.
+    nb_row = kfs.lm_idx[nb].clone()
+    nb_row.scatter_reduce_(0, nb_col, torch.where(create, slots, -1), "amax")
+    kfs.lm_idx[kf] = lm_kf
+    kfs.lm_idx[nb] = nb_row
+    return st._replace(n_pts=st.n_pts + n_new)
+
+
+def create_new_points(st: MapState, cam: Camera, scales: torch.Tensor, kf: int,
+                      neighbors: torch.Tensor, scale_factor: float,
+                      n_levels: int) -> MapState:
+    """CreateNewMapPoints against the top covisible neighbours."""
+    for j in range(neighbors.shape[0]):
+        nb_id = neighbors[j]
+        nb = nb_id.clamp(min=0).long()
+        nb_valid = (nb_id >= 0).expand(st.kfs.fvalid.shape[1])
+        tri = _triangulate_pair(st, cam, scales, kf, nb, nb_valid)
+        tri = tri._replace(ok=tri.ok & (nb_id >= 0) & (nb_id != kf))
+        st = _alloc_points(st, scale_factor, n_levels, kf, nb, tri, MAX_TRI)
+    return st
+
+
+def fuse_neighbors(st: MapState, cam: Camera, scales: torch.Tensor, kf: int,
+                   neighbors: torch.Tensor, scale_factor: float,
+                   n_levels: int) -> MapState:
+    """SearchInNeighbors (reference src/LocalMapping.cc:1249-1329 +
+    ORBmatcher::Fuse): project `kf`'s landmarks into each neighbour; a hit
+    on a feature that has a landmark merges the two (the one with more
+    observations survives, MapPoint::Replace), a hit on a free feature
+    adds the observation. The nearest-neighbour match is not mutual, so
+    two rows can pick one target: the highest row wins, as in the
+    reference's scatter."""
+    P = st.pts.xyz.shape[0]
+    dev = st.pts.xyz.device
+    remap = torch.arange(P, dtype=torch.int32, device=dev)
+    kfs, pts = st.kfs, st.pts
+
+    for j in range(neighbors.shape[0]):
+        nb_id = neighbors[j]
+        nb = nb_id.clamp(min=0).long()
+        nb_ok = (nb_id >= 0) & (nb_id != kf)
+        lm = kfs.lm_idx[kf].clone()
+        li = lm.clamp(min=0).long()
+        lm_ok = (lm >= 0) & pts.valid[li] & nb_ok
+        xyz = pts.xyz[li]
+        T2 = kfs.Tcw[nb]
+        pc = xyz @ T2[:3, :3].T + T2[:3, 3]
+        zs = torch.clamp(pc[:, 2], min=1e-6)
+        u = cam.fx * pc[:, 0] / zs + cam.cx
+        v = cam.fy * pc[:, 1] / zs + cam.cy
+        uv = torch.stack([u, v], dim=-1)
+        inimg = ((u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
+                 & (pc[:, 2] > 1e-3))
+        O2 = _center(T2)
+        dist3 = torch.linalg.norm(xyz - O2, dim=-1)
+        band_ok = (dist3 > 0.8 * pts.dmin[li]) & (dist3 < 1.2 * pts.dmax[li])
+        viewcos = torch.sum((xyz - O2) * pts.normal[li], dim=-1) / torch.clamp(
+            dist3, min=1e-9)
+        rows_ok = lm_ok & inimg & band_ok & (viewcos > 0.5)
+
+        pred = predict_octave(dist3, pts.dmax[li], scale_factor, n_levels)
+        radius = 3.0 * scales[pred.long()]
+        wmask = M.window_mask(uv, kfs.xy[nb], radius)
+        omask = M.octave_mask(pred, kfs.octave[nb], -1, 1)
+        dmat = M.masked_distances(M.hamming(pts.desc[li], kfs.desc[nb]), rows_ok,
+                                  kfs.fvalid[nb], wmask & omask)
+        mt, _ = M.nn_match(dmat, max_dist=M.TH_LOW)
+        hit = mt >= 0
+        col = mt.clamp(min=0).long()
+        nb_lm = kfs.lm_idx[nb]
+        tgt_lm = nb_lm[col]
+
+        # Case A: merge lm -> tgt (or tgt -> lm) where the target exists.
+        both = hit & (tgt_lm >= 0) & (tgt_lm != lm)
+        keep_tgt = pts.n_obs[tgt_lm.clamp(min=0).long()] >= pts.n_obs[li]
+        winner = torch.where(keep_tgt, tgt_lm, lm)
+        loser = torch.where(keep_tgt, lm, tgt_lm)
+        remap = _scatter_set_last(remap, loser, both, winner)
+        # Case B: a free feature gains the observation.
+        free_hit = hit & (tgt_lm < 0)
+        nb_row = _scatter_set_last(nb_lm, mt, free_hit, lm)
+        w_new = torch.where(kfs.u_right[nb][col] >= 0, 2, 1).to(torch.int32)
+        pts.n_obs.index_add_(0, li, torch.where(free_hit, w_new, 0))
+        kfs.lm_idx[nb] = nb_row
+
+    # Resolve remap chains (losers pointing at losers) by two hops, then
+    # apply to every observation row and invalidate the losers.
+    remap = remap[remap.long()]
+    remap = remap[remap.long()]
+    merged = remap != torch.arange(P, dtype=torch.int32, device=dev)
+    lm_idx = kfs.lm_idx
+    lm_idx.copy_(torch.where(lm_idx >= 0, remap[lm_idx.clamp(min=0).long()], -1))
+    gain = torch.zeros_like(pts.n_obs).index_add_(
+        0, remap.long(), pts.n_obs * merged.to(torch.int32))
+    pts.valid.copy_(pts.valid & ~merged)
+    pts.n_obs.add_(gain)
+    return st
+
+
+def _popcount16(v: torch.Tensor) -> torch.Tensor:
+    v = v - ((v >> 1) & 0x5555)
+    v = (v & 0x3333) + ((v >> 2) & 0x3333)
+    v = (v + (v >> 4)) & 0x0F0F
+    return (v + (v >> 8)) & 0x1F
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Exact per-word popcount of int32 words holding uint32 bits (torch
+    has no popcount op). Each word is split into two 16-bit halves, each
+    masked non-negative before the SWAR sum, so the arithmetic right
+    shift of a negative int32 never leaks a sign bit and nothing can
+    overflow."""
+    return _popcount16(x & 0xFFFF) + _popcount16((x >> 16) & 0xFFFF)
+
+
+def _window_lookup(lm_ids: torch.Tensor, P: int) -> torch.Tensor:
+    """Landmark id -> window slot (-1 outside the window), [P+1]. The -1
+    pads all write slot P, which no caller reads."""
+    lookup = torch.full((P + 1,), -1, dtype=torch.int32, device=lm_ids.device)
+    lookup[torch.where(lm_ids >= 0, lm_ids, P).long()] = torch.arange(
+        lm_ids.shape[0], dtype=torch.int32, device=lm_ids.device)
+    return lookup
+
+
+def refresh_landmark_stats(st: MapState, cams: torch.Tensor, lm_ids: torch.Tensor,
+                           scale_factor: float = 1.2, n_levels: int = 8) -> MapState:
+    """ComputeDistinctiveDescriptors + UpdateNormalAndDepth for the BA
+    window's landmarks (reference src/MapPoint.cc): gather each
+    landmark's observations in the window keyframes, keep the descriptor
+    with the least median Hamming distance to the others, and refresh the
+    mean viewing direction and the scale band."""
+    C = cams.shape[0]
+    L = lm_ids.shape[0]
+    P = st.pts.xyz.shape[0]
+    kfs = st.kfs
+    N = kfs.lm_idx.shape[1]
+    dev = cams.device
+    gk = cams.clamp(min=0).long()
+    lm_rows = kfs.lm_idx[gk]                                   # [C,N]
+    slot = _window_lookup(lm_ids, P)[lm_rows.clamp(0, P).long()]
+    obs_ok = (cams >= 0)[:, None] & (lm_rows >= 0) & (slot >= 0) & kfs.fvalid[gk]
+
+    # One observation per (landmark slot, camera). A keyframe row can hold
+    # one landmark twice (after a fuse remap); the highest feature index
+    # wins, as in the reference's scatter.
+    ci = torch.arange(C, device=dev)[:, None].expand(C, N)
+    cell = torch.where(obs_ok, slot, L).long() * C + ci
+    w = _last_writer(cell, obs_ok, (L + 1) * C).reshape(L + 1, C)[:L]
+    obs_has = w >= 0
+    wi = w.clamp(min=0)
+    obs_desc = torch.where(obs_has[..., None], kfs.desc[gk].reshape(C * N, 8)[wi], 0)
+    obs_oct = torch.where(obs_has, kfs.octave[gk].reshape(-1)[wi], 0)
+
+    # Min-median Hamming descriptor over the valid pairs only: invalid
+    # pairs sort last, the median is read at (n - 1) // 2.
+    x = obs_desc[:, :, None, :] ^ obs_desc[:, None, :, :]
+    d = torch.sum(popcount32(x), dim=-1, dtype=torch.int32)       # [L,C,C]
+    pair_ok = obs_has[:, :, None] & obs_has[:, None, :]
+    d_sorted = torch.sort(torch.where(pair_ok, d, 1 << 15), dim=-1).values
+    n_obs_w = torch.sum(obs_has.to(torch.int32), dim=-1, dtype=torch.int32)
+    mi = torch.clamp(torch.div(n_obs_w - 1, 2, rounding_mode="floor"), 0, C - 1)
+    med = torch.gather(d_sorted, 2, mi[:, None, None].long().expand(L, C, 1))[..., 0]
+    med = torch.where(obs_has, med.float(), float("inf"))
+    best = torch.argmin(med, dim=-1)
+    ar = torch.arange(L, device=dev)
+    new_desc = obs_desc[ar, best]
+
+    # The reference's "centres" are -R t (its einsum contracts R^T over
+    # the wrong index), not -R^T t; reproduced as is (ROADMAP queue C).
+    T = kfs.Tcw[gk]
+    O = -torch.einsum("cij,ci->cj", T[:, :3, :3].transpose(1, 2), T[:, :3, 3])
+    xyz = st.pts.xyz[lm_ids.clamp(min=0).long()]
+    rays = xyz[:, None, :] - O[None, :, :]
+    rn = torch.linalg.norm(rays, dim=-1)
+    unit = rays / torch.clamp(rn[..., None], min=1e-9)
+    normal = torch.sum(torch.where(obs_has[..., None], unit, 0.0), dim=1) \
+        / torch.clamp(n_obs_w[:, None].float(), min=1.0)
+    dmin, dmax = scale_band(rn[ar, best], obs_oct[ar, best], scale_factor,
+                            n_levels)
+
+    tgt = torch.where((lm_ids >= 0) & (n_obs_w >= 2), lm_ids, P)
+    pts = st.pts
+    for table, val in ((pts.desc, new_desc), (pts.normal, normal),
+                       (pts.dmin, dmin), (pts.dmax, dmax)):
+        _set_rows(table, tgt, val)
+    return st
+
+
+def cull_keyframes(st: MapState, kf: int):
+    """KeyFrameCulling (reference src/LocalMapping.cc:1577-1751): a
+    keyframe >= 90% of whose landmarks are seen by at least 3 other
+    keyframes at the same or a finer scale is marked bad (never keyframe
+    0, `kf` or `kf - 1`; at most MAX_KF_CULL per call) and its
+    observations are erased. Returns (state, culled ids [MAX_KF_CULL]
+    int32, -1 padded)."""
+    kfs = st.kfs
+    K, N = kfs.lm_idx.shape
+    P = st.pts.xyz.shape[0]
+    dev = kfs.lm_idx.device
+    lm = kfs.lm_idx.clone()
+    ok = (lm >= 0) & kfs.fvalid & kfs.valid[:, None]
+    oct_c = torch.clamp(kfs.octave, 0, _N_LV - 1)
+    # cnt_leq[lm, o]: keyframes observing lm at an octave <= o.
+    hist = torch.zeros(((P + 1) * _N_LV,), dtype=torch.int32, device=dev)
+    hist.index_add_(0, (torch.where(ok, lm, P).long() * _N_LV + oct_c).reshape(-1),
+                    torch.ones(K * N, dtype=torch.int32, device=dev))
+    cnt_leq = torch.cumsum(hist.reshape(P + 1, _N_LV)[:P], dim=1, dtype=torch.int32)
+    gate_oct = torch.clamp(oct_c + 1, 0, _N_LV - 1)
+    n_obs_scaled = cnt_leq[lm.clamp(min=0).long(), gate_oct.long()]
+    redundant = ok & (n_obs_scaled >= 4)
+    n_feat = torch.sum(ok.to(torch.int32), dim=1, dtype=torch.int32)
+    n_red = torch.sum(redundant.to(torch.int32), dim=1, dtype=torch.int32)
+    ratio = n_red.float() / torch.clamp(n_feat.float(), min=1.0)
+
+    idx = torch.arange(K, device=dev)
+    cand = (kfs.valid & (idx != 0) & (idx != kf) & (idx != kf - 1)
+            & (ratio > 0.9) & (n_feat > 50))
+    order = torch.argsort(torch.where(cand, -ratio, float("inf")), stable=True)
+    sel = order[:MAX_KF_CULL]
+    culled_ids = torch.where(cand[sel], sel, -1).to(torch.int32)
+    cull = torch.zeros((K,), dtype=torch.bool, device=dev)
+    cull[sel] = cand[sel]
+    kfs.valid.copy_(kfs.valid & ~cull)
+    # Erase the culled keyframes' observations (reference SetBadFlag).
+    gone = ok & cull[:, None]
+    w = torch.where(kfs.u_right >= 0, 2, 1).to(torch.int32)
+    st.pts.n_obs.index_add_(0, lm.clamp(min=0).reshape(-1).long(),
+                            torch.where(gone, -w, 0).reshape(-1))
+    kfs.lm_idx.copy_(torch.where(cull[:, None], -1, lm))
+    return st, culled_ids
+
+
+def build_ba_window(st: MapState, kf: int):
+    """Free cameras: `kf` and its best covisible keyframes (1-ring,
+    reference Optimizer.cc:2386-2405); fixed: the next best (2-ring,
+    :2442-2465). Landmarks: the union of the free cameras' observations,
+    deduplicated, at most L_WINDOW. Returns (cams [C] int32 with -1 pads,
+    lm_ids [L] int32 with -1 pads)."""
+    ids, _ = _topk_covisible(st, kf, N_WINDOW + N_FIXED - 1)
+    dev = ids.device
+    free = torch.cat([torch.full((1,), kf, dtype=torch.int32, device=dev),
+                      ids[:N_WINDOW - 1]])
+    cams = torch.cat([free, ids[N_WINDOW - 1:]])
+    rows = st.kfs.lm_idx[free.clamp(min=0).long()]
+    flat = torch.where((free >= 0)[:, None], rows, -1).reshape(-1)
+    ok = (flat >= 0) & st.pts.valid[flat.clamp(min=0).long()]
+    s = torch.sort(torch.where(ok, flat, -1)).values
+    F = s.shape[0]
+    first = torch.cat([s[:1] >= 0, (s[1:] != s[:-1]) & (s[1:] >= 0)])
+    key = torch.where(first, torch.arange(F, dtype=torch.int32, device=dev), F)
+    sel = torch.sort(key).values[:min(L_WINDOW, F)]
+    lm_ids = torch.where(sel < F, s[sel.clamp(0, F - 1).long()], -1)
+    return cams, lm_ids
+
+
+def make_ba_problem(st: MapState, cams: torch.Tensor,
+                    lm_ids: torch.Tensor) -> BAProblem:
+    """The fixed-shape edge table for `ba_solve`: each (camera slot,
+    feature) pair whose landmark is in the window is one edge."""
+    P = st.pts.xyz.shape[0]
+    C = cams.shape[0]
+    kfs = st.kfs
+    N = kfs.lm_idx.shape[1]
+    gk = cams.clamp(min=0).long()
+    cam_ok = cams >= 0
+    lm_rows = kfs.lm_idx[gk]
+    slot = _window_lookup(lm_ids, P)[lm_rows.clamp(0, P).long()]
+    e_ok = (cam_ok[:, None] & (lm_rows >= 0) & (slot >= 0) & kfs.fvalid[gk]
+            & st.pts.valid[lm_rows.clamp(min=0).long()])
+    e_cam = torch.arange(C, dtype=torch.int32, device=cams.device)[:, None] \
+        .expand(C, N).reshape(-1)
+    return BAProblem(
+        Tcw=kfs.Tcw[gk],
+        # Keyframe 0 stays frozen as the gauge anchor.
+        cam_free=cam_ok & (cams != 0),
+        xyz=st.pts.xyz[lm_ids.clamp(min=0).long()],
+        lm_ok=lm_ids >= 0,
+        e_cam=e_cam,
+        e_lm=torch.where(e_ok, slot, 0).reshape(-1),
+        e_uv=kfs.xy[gk].reshape(-1, 2),
+        e_ur=torch.where(e_ok, kfs.u_right[gk], -1.0).reshape(-1),
+        e_inv_sigma2=(1.0 / kfs.sigma2[gk]).reshape(-1),
+        e_ok=e_ok.reshape(-1),
+    )
+
+
+def apply_ba_result(st: MapState, cams: torch.Tensor, lm_ids: torch.Tensor,
+                    prob: BAProblem, res) -> MapState:
+    """Write the optimized poses (free slots, never keyframe 0) and
+    landmarks back, and erase the outlier observations (reference
+    Optimizer.cc:2766-2830)."""
+    C = cams.shape[0]
+    kfs = st.kfs
+    N = kfs.lm_idx.shape[1]
+    P = st.pts.xyz.shape[0]
+    dev = cams.device
+    gid = cams[:N_WINDOW]
+    write = gid > 0
+    tgt = torch.where(write, gid, 0).long()
+    kfs.Tcw[tgt] = torch.where(write[:, None, None], res.Tcw[:N_WINDOW], kfs.Tcw[tgt])
+    _set_rows(st.pts.xyz, torch.where(lm_ids >= 0, lm_ids, P),
+              res.xyz[:lm_ids.shape[0]])
+
+    Ep = C * N
+    bad = (prob.e_ok[:Ep] & ~res.e_inlier[:Ep]).reshape(C, N)
+    gk = cams.clamp(min=0).long()
+    lm_rows = kfs.lm_idx[gk]
+    new_rows = torch.where(bad, -1, lm_rows)
+    # Pads (-1) clamp to keyframe 0 and rewrite its unchanged row; where
+    # slots share a keyframe the highest slot's row wins, as in the
+    # reference's scatter.
+    ar = torch.arange(C, device=dev)
+    win = torch.max(torch.where(gk[:, None] == gk[None, :], ar[None, :], -1),
+                    dim=1).values
+    kfs.lm_idx[gk] = new_rows[win]
+    w_obs = torch.where(prob.e_ur[:Ep] >= 0, 2, 1).to(torch.int32).reshape(C, N)
+    st.pts.n_obs.index_add_(0, lm_rows.clamp(min=0).reshape(-1).long(),
+                            torch.where(bad, -w_obs, 0).reshape(-1))
+    return st
+
+
+def map_upkeep(st: MapState, kf: int, cam: Camera, scales: torch.Tensor,
+               scale_factor: float = 1.2, n_levels: int = 8, th_obs: int = 3):
+    """Stages 1-3 of the mapping step: cull points, triangulate against
+    the covisible neighbours, fuse. Returns (state, neighbours)."""
+    st = cull_points(st, kf, th_obs=th_obs)
+    neighbors, _ = _topk_covisible(st, kf, N_NEIGH)
+    st = create_new_points(st, cam, scales, kf, neighbors, scale_factor, n_levels)
+    st = fuse_neighbors(st, cam, scales, kf, neighbors, scale_factor, n_levels)
+    return st, neighbors
+
+
+def local_ba(st: MapState, kf: int, cam: Camera, scale_factor: float = 1.2,
+             n_levels: int = 8, ba_rounds: int = 2, ba_iters: int = 5):
+    """Stage 4: window, landmark upkeep, local BA and its write-back.
+    Returns (state, problem, result)."""
+    cams, lm_ids = build_ba_window(st, kf)
+    st = refresh_landmark_stats(st, cams, lm_ids, scale_factor, n_levels)
+    prob = make_ba_problem(st, cams, lm_ids)
+    res = ba_solve(cam, prob, rounds=ba_rounds, iters=ba_iters, n_free=N_WINDOW)
+    st = apply_ba_result(st, cams, lm_ids, prob, res)
+    return st, prob, res
+
+
+def mapping_step(st: MapState, kf: int, cam: Camera, scales: torch.Tensor, *,
+                 scale_factor: float = 1.2, n_levels: int = 8, ba_rounds: int = 2,
+                 ba_iters: int = 5, th_obs: int = 3, with_lines: bool = False,
+                 k_bucket: int | None = None):
+    """The per-keyframe mapping step: cull -> triangulate -> fuse -> local
+    BA -> keyframe culling, in place on `st`. Returns (state,
+    stats [MSTAT_LEN]), see the MSTAT_* layout.
+
+    `k_bucket`: the keyframe-table stages run on the first k_bucket rows
+    (a view, so every write lands in the full tables); the caller passes
+    the next power of two >= the live keyframe count, floor 32."""
+    if with_lines:
+        raise NotImplementedError("line pipeline: later slice")
+    full_kfs = st.kfs
+    if k_bucket is not None and k_bucket < full_kfs.Tcw.shape[0]:
+        st = st._replace(kfs=KeyFrames(*[x[:k_bucket] for x in full_kfs]))
+    st, _ = map_upkeep(st, kf, cam, scales, scale_factor, n_levels, th_obs)
+    st, prob, res = local_ba(st, kf, cam, scale_factor, n_levels, ba_rounds,
+                             ba_iters)
+    st, culled = cull_keyframes(st, kf)
+    # Host payload: the keyframe's post-BA pose, and for each culled
+    # keyframe Tcp = Tcw_culled @ inv(Tcw_kf), its pose relative to the
+    # live anchor at cull time (the reference's mTcp).
+    Tkf = st.kfs.Tcw[kf]
+    # inv_ex: no singularity check, which would wait for the device.
+    Tcp = st.kfs.Tcw[culled.clamp(min=0).long()] @ torch.linalg.inv_ex(Tkf).inverse
+    cull_info = torch.cat([culled.float()[:, None], Tcp.reshape(-1, 16)],
+                          dim=1).reshape(-1)
+    stats = torch.cat([
+        torch.stack([st.n_pts.float(), torch.sum(prob.e_ok).float(),
+                     torch.sum(res.e_inlier).float(), res.total_chi2]),
+        Tkf.reshape(-1), cull_info,
+        torch.stack([res.n_guarded.float(), res.n_state_revert.float(),
+                     res.n_lm_singular.float()]),
+    ])
+    return st._replace(kfs=full_kfs), stats

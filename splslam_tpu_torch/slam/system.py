@@ -8,9 +8,13 @@ reference's control flow: the reference-keyframe fallback, the lost
 gate, the keyframe policy (NeedNewKeyFrame, src/Tracking.cc:2181-2336),
 and the per-frame relative-pose trajectory log (src/System.cc:369-395).
 
-This slice is stereo, points only, with local mapping, relocalization
-and loop closing off. Asking for any of those, for lines, or for a mono
-or RGB-D sensor raises NotImplementedError; nothing is dropped silently.
+After each keyframe insertion the local mapper runs the mapping step
+(`slam/local_mapping.py`); its stats are read one keyframe late.
+
+This slice is stereo, points only, with local mapping (on by default, as
+in the reference); relocalization and loop closing are off. Asking for
+either, for lines, or for a mono or RGB-D sensor raises
+NotImplementedError; nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
 from splslam_tpu_torch.slam import pipeline
 from splslam_tpu_torch.slam.frame import LINES_LATER, FrameData, build_frame_stereo
+from splslam_tpu_torch.slam.local_mapping import LocalMapper
 from splslam_tpu_torch.slam.map import MapState
 from splslam_tpu_torch.slam.pipeline import StepState
 from splslam_tpu_torch.slam.tracking import bow_free_refkf_match
@@ -58,9 +63,9 @@ def track_lost(n_in: int, n_ln_in: int, using_line: bool,
 
 @dataclass
 class Settings:
-    """Flat config mirroring the reference YAML keys. Local mapping,
-    relocalization and loop closing default to off here: they belong to
-    later slices and raise if enabled."""
+    """Flat config mirroring the reference YAML keys. Relocalization and
+    loop closing default to off here: they belong to later slices and
+    raise if enabled."""
 
     # Camera.*
     fx: float = 500.0
@@ -88,8 +93,12 @@ class Settings:
     max_maplines: int = 4096
     max_keyframes: int = 1024
     local_window: int = 2048
+    # mapping: two 5-iteration local-BA rounds with a chi2
+    # re-classification between them (reference Optimizer.cc:2713-2764)
+    enable_local_mapping: bool = True
+    local_ba_rounds: int = 2
+    local_ba_iters: int = 5
     # later slices (raise if enabled)
-    enable_local_mapping: bool = False
     enable_relocalization: bool = False
     enable_loop_closing: bool = False
     # keyframe policy
@@ -119,8 +128,7 @@ def _check_slice(settings: Settings, sensor: Sensor):
         raise NotImplementedError(f"{sensor.name} sensor: later slice")
     if settings.using_line:
         raise NotImplementedError(LINES_LATER)
-    for flag, what in (("enable_local_mapping", "local mapping"),
-                       ("enable_relocalization", "relocalization (vocabulary)"),
+    for flag, what in (("enable_relocalization", "relocalization (vocabulary)"),
                        ("enable_loop_closing", "loop closing (vocabulary)")):
         if getattr(settings, flag):
             raise NotImplementedError(f"{what}: later slice")
@@ -167,6 +175,10 @@ class System:
         self._pending: deque = deque()   # (stats, ts, step_state, frame_id)
         self._pending_kf_out = None      # keyframe-creation output
         self._frames_lost = 0
+        self.mapper = LocalMapper(self)
+        # Bumped by loop correction / global BA (later slices): a mapping
+        # result dispatched before a bump is stale.
+        self.map_version = 0
 
     # ------------------------------------------------------------------
     # public API (reference System.h:84-128)
@@ -197,6 +209,17 @@ class System:
         self.drain()
         return self.state
 
+    def health(self) -> dict:
+        """Solver-guard counters of the mapping steps so far. A healthy
+        run has mapping_state_revert == 0; mapping_guarded is transient
+        and only its rate is bounded; mapping_lm_singular is benign."""
+        return {
+            "mapping_guarded": self.mapper.n_guarded,
+            "mapping_state_revert": self.mapper.n_state_revert,
+            "mapping_lm_singular": self.mapper.n_lm_singular,
+            "mapping_steps": self.mapper.n_steps,
+        }
+
     def reset(self):
         self._reset_runtime()
         self.state = TrackingState.NO_IMAGES_YET
@@ -217,6 +240,7 @@ class System:
         trajectory query)."""
         while self._pending:
             self._process_one()
+        self.mapper.flush()   # apply any pending post-BA pose and culls
 
     def _process_one(self):
         stats_dev, ts, step_state, fid = self._pending.popleft()
@@ -299,6 +323,7 @@ class System:
         self.last_Tcw_np = np.eye(4, dtype=np.float32)
         self._log_frame(ts, self.last_Tcw_np, lost=False)
         self.frame_id += 1
+        self.mapper.on_keyframe(kf)
 
     def _need_new_keyframe(self, stats: np.ndarray, n_in: int) -> bool:
         """Reference Tracking::NeedNewKeyFrame (src/Tracking.cc:2181-2336),
@@ -336,6 +361,7 @@ class System:
         if step_state is self.step:
             self.step = new_state
         self._pending_kf_out = out
+        self.mapper.on_keyframe(kf)
 
     def _resolve_kf_out(self):
         if self._pending_kf_out is not None:
@@ -347,6 +373,27 @@ class System:
         Tcr = Tcw_np @ np.linalg.inv(Trw)
         self.trajectory.append(
             _TrajEntry(ts, Tcr, self.ref_kf, lost, Tcw_np.copy()))
+
+    def _on_mapping_result(self, kf: int, pose: np.ndarray | None, culled):
+        """Host bookkeeping after a mapping step (reference
+        KeyFrame::SetBadFlag mTcp + System.cc:369-374, applied eagerly):
+        refresh the stepped keyframe's host pose with its post-BA value
+        (None: stale, skipped), and re-root trajectory entries whose
+        reference keyframe was culled onto the anchor `kf`:
+        Tcr' = Tcr @ Tcp, ref' = kf."""
+        if pose is not None:
+            self.kf_pose_host[kf] = pose.astype(np.float32)
+        for cid, Tcp in culled:
+            if cid == kf:
+                continue
+            Tcp = Tcp.astype(np.float32)
+            for e in self.trajectory:
+                if e.ref_kf == cid:
+                    e.Tcr = (e.Tcr @ Tcp).astype(np.float32)
+                    e.ref_kf = kf
+            self.kf_pose_host.pop(cid, None)
+            if self.ref_kf == cid:
+                self.ref_kf = kf
 
     # ------------------------------------------------------------------
     # trajectory export (reference System.cc:340-540)

@@ -1,6 +1,8 @@
 """Tests that need a CUDA device: the hand-written `orb_describe` kernel
 against its plain PyTorch version, and the port on the GPU against the
-port on the CPU. Every test skips on a host without a card.
+port on the CPU (tracking alone, tracking with local mapping, and one
+mapping step from identical maps). Every test skips on a host without a
+card.
 
 This file imports no JAX (a GPU host need not have it, and
 tests/conftest.py imports it), so on a GPU host run it as
@@ -10,7 +12,11 @@ tests/conftest.py imports it), so on a GPU host run it as
 Tolerances: angle 1e-3 rad and descriptor bits >= 99.5% equal (the
 repo's kernel tolerance, tests/test_orb_pallas.py); keypoint tables
 exact; poses within 1e-3 of the CPU run (float32 sums in another order
-on the GPU)."""
+on the GPU). One mapping step: the integer tables after cull, triangulate
+and fuse exact; after local BA, keyframe poses within 1e-3, 99% of the
+window's landmarks within 1e-3 (a landmark seen by two keyframes slides
+along its ray) and inlier masks >= 99% equal (GPU atomics sum the normal
+equations in another order)."""
 
 import numpy as np
 import pytest
@@ -20,6 +26,7 @@ from splslam_tpu.io.synthetic import ate_rmse, make_stereo_sequence
 from splslam_tpu_torch.ops import orb as TO
 from splslam_tpu_torch.ops import orb_kernel as OK
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
+from splslam_tpu_torch.slam import mapping_ops as TMO
 from splslam_tpu_torch.slam import system as TS
 
 pytestmark = pytest.mark.gpu
@@ -105,15 +112,19 @@ def test_extract_orb_gpu_matches_cpu(cuda):
     assert bit_agreement(fg.desc, fc.desc) >= BIT_AGREE
 
 
-def test_system_gpu_matches_cpu(cuda):
-    K, bf, frames, gt = make_stereo_sequence(n_frames=20, motion="forward",
-                                             width=320, height=240)
-    st = TS.Settings(
+def _settings(K, bf, **kw):
+    return TS.Settings(
         fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
         cy=float(K[1, 2]), bf=float(bf), width=320, height=240,
         n_features=600, n_levels=4, th_depth=40.0, fps=10,
-        max_points=8192, max_keyframes=64, local_window=1024,
+        max_points=8192, max_keyframes=64, local_window=1024, **kw,
     )
+
+
+def test_system_gpu_matches_cpu(cuda):
+    K, bf, frames, gt = make_stereo_sequence(n_frames=20, motion="forward",
+                                             width=320, height=240)
+    st = _settings(K, bf, enable_local_mapping=False)
     runs = []
     for dev in ("cpu", cuda):
         sysm = TS.System(st, TS.Sensor.STEREO, dev)
@@ -128,3 +139,61 @@ def test_system_gpu_matches_cpu(cuda):
     pc, pg = sc.poses(), sg.poses()
     np.testing.assert_allclose(pg[:, :3, :4], pc[:, :3, :4], atol=1e-3)
     assert ate_rmse(pg, gt) < 0.05
+
+
+def test_mapping_system_gpu_matches_cpu(cuda):
+    """20 frames with local mapping, keyframes every 4 frames."""
+    K, bf, frames, gt = make_stereo_sequence(n_frames=20, motion="forward",
+                                             width=320, height=240)
+    st = _settings(K, bf, force_kf_every=4)
+    runs = []
+    for dev in ("cpu", cuda):
+        sysm = TS.System(st, TS.Sensor.STEREO, dev)
+        for i, (l, r) in enumerate(frames):
+            sysm.track_stereo(l, r, i * 0.1)
+        assert sysm.get_tracking_state() == TS.TrackingState.OK
+        assert sysm.health()["mapping_state_revert"] == 0
+        runs.append(sysm)
+    sc, sg = runs
+    assert sg.n_kfs == sc.n_kfs >= 4
+    assert sg.mapper.n_steps == sc.mapper.n_steps == sc.n_kfs - 1
+    np.testing.assert_array_equal(sg.map.kfs.frame_id.cpu().numpy(),
+                                  sc.map.kfs.frame_id.numpy())
+    np.testing.assert_allclose(sg.poses()[:, :3, :4], sc.poses()[:, :3, :4], atol=1e-3)
+    assert ate_rmse(sg.poses(), gt) < 0.05
+
+
+def _int_tables(m):
+    return {"n_pts": m.n_pts, "pts.valid": m.pts.valid, "pts.recent": m.pts.recent,
+            "pts.n_obs": m.pts.n_obs, "pts.first_kf": m.pts.first_kf,
+            "pts.desc": m.pts.desc, "kfs.lm_idx": m.kfs.lm_idx, "kfs.valid": m.kfs.valid}
+
+
+def test_mapping_step_gpu_matches_cpu(cuda):
+    """One mapping step on the GPU and on the CPU from identical maps (the
+    CPU port's map after 13 frames, stepped again on its last keyframe)."""
+    K, bf, frames, _ = make_stereo_sequence(n_frames=13, motion="forward",
+                                            width=320, height=240)
+    sysm = TS.System(_settings(K, bf, force_kf_every=4), TS.Sensor.STEREO, "cpu")
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.1)
+    sysm.drain()
+    kf = sysm.n_kfs - 1
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("gpu", cuda)):
+        m = sysm.map.to(dev)
+        m = m._replace(kfs=type(m.kfs)(*[x[:32] for x in m.kfs]))
+        m, _ = TMO.map_upkeep(m, kf, sysm.cam, sysm.scales.to(dev), 1.2, 4)
+        ints = {k: v.to("cpu", copy=True) for k, v in _int_tables(m).items()}
+        m, prob, res = TMO.local_ba(m, kf, sysm.cam, 1.2, 4)
+        out[key] = (ints, m, prob, res)
+    (ic, _, pc, rc), (ig, _, pg, rg) = out["cpu"], out["gpu"]
+    for k in ic:
+        torch.testing.assert_close(ig[k], ic[k], rtol=0, atol=0, msg=k)
+    torch.testing.assert_close(pg.e_ok.cpu(), pc.e_ok, rtol=0, atol=0)
+    np.testing.assert_allclose(rg.Tcw.cpu().numpy(), rc.Tcw.numpy(), atol=1e-3)
+    d = (rg.xyz.cpu() - rc.xyz).norm(dim=-1)[pc.lm_ok]
+    assert float(torch.quantile(d, 0.99)) <= 1e-3
+    agree = (rg.e_inlier.cpu() == rc.e_inlier)[pc.e_ok].float().mean()
+    assert float(agree) >= 0.99
+    assert int(rg.n_state_revert) == int(rc.n_state_revert) == 0

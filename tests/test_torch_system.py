@@ -1,12 +1,18 @@
 """The PyTorch port's stereo slice as a whole, against the JAX System on
-the same 20-frame forward sequence as tests/test_e2e_stereo.py (local
-mapping and relocalization off on both sides).
+the same 20-frame forward sequence as tests/test_e2e_stereo.py: tracking
+alone (local mapping and relocalization off on both sides), and with
+local mapping on at the reference's pinned keyframe cadence
+(`force_kf_every=4`, tests/test_e2e_parity.py).
 
-Gates: state OK and ATE < 0.05 (the JAX gate); the same keyframes as the
-JAX run; per-frame poses within 1e-3 (translation, and rotation matrix
-entries) of the JAX run — float32 differences of ~1e-5 accumulate over
-the sequence (measured max 8.1e-6 translation); equal trajectory export
-line counts. Slice limits raise NotImplementedError."""
+Gates: state OK and ATE < 0.05 (the JAX gate); the same keyframes (and,
+with mapping, the same number of mapping steps) as the JAX run;
+per-frame poses within 1e-3 (translation, and rotation matrix entries)
+of the JAX run — float32 differences accumulate over the sequence
+(measured max 8.1e-6 translation without mapping, 3.4e-4 with it: local
+BA moves the keyframe poses the frames are tracked against); no
+non-finite BA revert (`mapping_state_revert == 0`) on either side;
+equal trajectory export line counts. Slice limits raise
+NotImplementedError."""
 
 import numpy as np
 import pytest
@@ -35,10 +41,23 @@ def settings_kw(K, bf):
 def runs():
     K, bf, frames, gt = make_stereo_sequence(n_frames=20, motion="forward",
                                              width=320, height=240)
-    kw = settings_kw(K, bf)
+    kw = dict(settings_kw(K, bf), enable_local_mapping=False)
     ts = TS.System(TS.Settings(**kw), TS.Sensor.STEREO, "cpu")
-    js = JS.System(JS.Settings(**kw, enable_local_mapping=False,
-                               enable_relocalization=False), JS.Sensor.STEREO)
+    js = JS.System(JS.Settings(**kw, enable_relocalization=False), JS.Sensor.STEREO)
+    for sysm in (ts, js):
+        for i, (l, r) in enumerate(frames):
+            sysm.track_stereo(l, r, i * 0.1)
+        sysm.drain()
+    return ts, js, gt
+
+
+@pytest.fixture(scope="module")
+def mapping_runs():
+    K, bf, frames, gt = make_stereo_sequence(n_frames=20, motion="forward",
+                                             width=320, height=240)
+    kw = dict(settings_kw(K, bf), force_kf_every=4)
+    ts = TS.System(TS.Settings(**kw), TS.Sensor.STEREO, "cpu")
+    js = JS.System(JS.Settings(**kw, enable_relocalization=False), JS.Sensor.STEREO)
     for sysm in (ts, js):
         for i, (l, r) in enumerate(frames):
             sysm.track_stereo(l, r, i * 0.1)
@@ -88,6 +107,46 @@ def test_trajectory_export(runs, tmp_path):
     np.testing.assert_allclose(a, b, atol=POSE_ATOL)
 
 
+def test_mapping_run_follows_jax(mapping_runs):
+    ts, js, gt = mapping_runs
+    assert ts.settings.enable_local_mapping and js.settings.enable_local_mapping
+    assert ts.get_tracking_state() == TS.TrackingState.OK
+    assert not any(e.lost for e in ts.trajectory)
+    assert ts.n_kfs == js.n_kfs >= 4
+    np.testing.assert_array_equal(ts.map.kfs.frame_id[:ts.n_kfs].numpy(),
+                                  np.asarray(js.map.kfs.frame_id[:js.n_kfs]))
+    np.testing.assert_array_equal(ts.map.kfs.valid[:ts.n_kfs].numpy(),
+                                  np.asarray(js.map.kfs.valid[:js.n_kfs]))
+    assert ts.mapper.n_steps == js.mapper.n_steps == ts.n_kfs - 1
+    assert ts.n_pts == js.n_pts
+    pt, pj = ts.poses(), js.poses()
+    np.testing.assert_allclose(pt[:, :3, 3], pj[:, :3, 3], atol=POSE_ATOL)
+    np.testing.assert_allclose(pt[:, :3, :3], pj[:, :3, :3], atol=POSE_ATOL)
+    assert ate_rmse(pt, gt) < 0.05
+
+
+def test_mapping_health_matches_jax(mapping_runs):
+    ts, js, _ = mapping_runs
+    th, jh = ts.health(), js.health()
+    for k in th:
+        assert th[k] == jh[k], k
+    assert th["mapping_state_revert"] == 0
+    assert th["mapping_steps"] == ts.mapper.n_steps
+    # the post-BA keyframe poses reached the host log (one step late)
+    for kf, pose in ts.kf_pose_host.items():
+        np.testing.assert_allclose(pose, js.kf_pose_host[kf], atol=POSE_ATOL)
+
+
+def test_mapping_trajectory_export(mapping_runs, tmp_path):
+    ts, js, gt = mapping_runs
+    for name, sysm in (("torch", ts), ("jax", js)):
+        sysm.save_trajectory_kitti(str(tmp_path / f"{name}.kitti"))
+    a = np.loadtxt(tmp_path / "torch.kitti")
+    b = np.loadtxt(tmp_path / "jax.kitti")
+    assert a.shape == b.shape == (len(gt), 12)
+    np.testing.assert_allclose(a, b, atol=POSE_ATOL)
+
+
 @pytest.mark.parametrize("policy", [dict(force_kf_every=4),
                                     dict(min_kf_gap=100), dict(async_depth=2)])
 def test_keyframe_policy_knobs_match_jax(policy):
@@ -95,10 +154,9 @@ def test_keyframe_policy_knobs_match_jax(policy):
     keyframe after the first comes from the knob under test."""
     K, bf, frames, _ = make_stereo_sequence(n_frames=13, motion="lateral",
                                             width=320, height=240)
-    kw = dict(settings_kw(K, bf), **policy)
+    kw = dict(settings_kw(K, bf), enable_local_mapping=False, **policy)
     ts = TS.System(TS.Settings(**kw), TS.Sensor.STEREO, "cpu")
-    js = JS.System(JS.Settings(**kw, enable_local_mapping=False,
-                               enable_relocalization=False), JS.Sensor.STEREO)
+    js = JS.System(JS.Settings(**kw, enable_relocalization=False), JS.Sensor.STEREO)
     for sysm in (ts, js):
         for i, (l, r) in enumerate(frames):
             sysm.track_stereo(l, r, i * 0.1)
@@ -136,8 +194,8 @@ def test_reset(runs):
 
 @pytest.mark.parametrize("change", [
     dict(sensor=TS.Sensor.MONOCULAR), dict(sensor=TS.Sensor.RGBD),
-    dict(using_line=True), dict(enable_local_mapping=True),
-    dict(enable_relocalization=True), dict(enable_loop_closing=True),
+    dict(using_line=True), dict(enable_relocalization=True),
+    dict(enable_loop_closing=True),
 ])
 def test_later_slices_raise(change):
     change = dict(change)

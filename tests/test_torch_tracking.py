@@ -92,23 +92,41 @@ def test_assemble_local_window(ref):
 
 
 def test_covisibility_counts(ref):
-    """The port counts every shared landmark. The reference drops landmark
-    0: its scatter-set writes True (landmark 0) and False (each -1,
-    clipped to 0) into slot 0, and XLA's CPU scatter keeps the last write
-    (ROADMAP queue C). Everything else must agree exactly."""
+    """Equal to the reference, landmark 0 included: the reference's
+    scatter-set writes True (landmark 0) and False (each -1, clipped to
+    0) into slot 0 and XLA's CPU scatter keeps the last write; the port
+    reproduces that rule (`map.landmark_membership`)."""
     from splslam_tpu.slam import map as JM
 
     q = np.array(ref.step.lm_gid)
     got = TMap.covisibility_counts(fresh_map(ref), torch.from_numpy(q)).numpy()
-    kf_lm = np.asarray(ref.map.kfs.lm_idx)
-    member = np.zeros(ref.map.pts.xyz.shape[0], bool)
-    member[q[q >= 0]] = True
-    expect = ((kf_lm >= 0) & member[np.clip(kf_lm, 0, None)]).sum(1) \
-        * np.asarray(ref.map.kfs.valid)
-    np.testing.assert_array_equal(got, expect)
-    jax_counts = np.asarray(JM.covisibility_counts(ref.map, ref.step.lm_gid))
-    dropped = (kf_lm == 0).any(1) & member[0] & np.asarray(ref.map.kfs.valid)
-    np.testing.assert_array_equal(got - jax_counts, dropped.astype(int))
+    np.testing.assert_array_equal(
+        got, np.asarray(JM.covisibility_counts(ref.map, ref.step.lm_gid)))
+    assert got.max() > 100
+
+
+@pytest.mark.parametrize("row,member0", [
+    ([5, 0, 7, -1, -1, 3], False),   # landmark 0, then a -1
+    ([-1, 5, -1, 0, 7, 3], True),    # landmark 0 is the last entry <= 0
+    ([4, 2, 9], False),              # nothing clips onto slot 0
+])
+def test_covisibility_counts_landmark_zero(ref, row, member0):
+    """Hand-built query rows that pin both branches of the rule."""
+    from splslam_tpu.slam import map as JM
+
+    m = jax.device_get(ref.map)
+    lm = np.array(m.kfs.lm_idx)
+    lm[:2] = -1
+    lm[0, :6] = [0, 2, 3, 4, 5, 9]
+    lm[1, :3] = [0, 7, -1]
+    m = m._replace(kfs=m.kfs._replace(lm_idx=lm))
+    q = np.asarray(row, np.int32)
+    jc = np.asarray(JM.covisibility_counts(jax.tree.map(jnp.asarray, m), jnp.asarray(q)))
+    tc = TMap.covisibility_counts(convert.map_state_from_numpy(m, "cpu"),
+                                  torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(tc, jc)
+    assert TMap.landmark_membership(torch.from_numpy(q), 16)[0].item() == member0
+    assert jc[1] == int(member0) + (7 in row)
 
 
 def _jax_window(r):
