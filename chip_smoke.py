@@ -5,24 +5,33 @@
 Phases, each fatal on failure:
   1. report the card (nvidia-smi name and power limit), torch and CUDA
      versions; turn TF32 off for matmuls and cuDNN;
-  2. build the hand-written kernel from this checkout's sources;
+  2. build the hand-written kernel from this checkout's sources; print
+     ptxas's registers, shared memory and stack, and the resident blocks
+     per SM this gives;
   3. hold the kernel against its plain PyTorch version at main-path
-     shapes (the packed pyramid and 2000 corners of one 1241x376 frame):
-     angle within 1e-3 rad, descriptor bits >= 99.5% equal; time both
-     with CUDA events (median of 20 after 3 warm-ups);
+     shapes (both images of one 1241x376 stereo frame, 8 unblurred
+     levels each, 2 x 2000 slots, one launch): angle within 1e-3 rad,
+     descriptor bits >= 99.5% equal; print the share of equal words and
+     the largest angle error. Time the kernel on the device (CUDA events
+     around a CUDA graph of 20 launches), the wrapper call and the plain
+     version (CUDA events, median of 20 after 3 warm-ups), and the torch
+     blur + packing + corner stage the kernel absorbed (`replaced_ms`);
+     print the bound from the bytes and operations of this input;
   4. drive the port's main path, `System(..., device="cuda").track_stereo`,
      over 40 KITTI-sized synthetic stereo frames at the benchmark
      configuration (2000 features, 8 levels, 65536 points, 256 keyframes,
      2048-landmark local window; local mapping and relocalization off):
      the run must stay OK with no frame lost, keep ATE-RMSE within 1% of
-     the path length, and launch the kernel at least twice per frame;
+     the path length, and launch the kernel exactly once per frame. Then
+     count the device kernels of one `build_frame_stereo` call with
+     `torch.profiler` (CUDA activity);
   5. drive the mapping path at the same configuration with local mapping
      on and a keyframe every 4 frames (the reference's pinned cadence)
      over 40 frames: OK, no frame lost, one mapping step per keyframe
      after the first, >= 8 keyframes, no non-finite BA revert, a bounded
      rate of guarded BA iterations, steps that create landmarks and BA
-     windows with inlier edges, ATE within 1% of the path, >= 2 kernel
-     launches per frame. Then one mapping step from identical copies of
+     windows with inlier edges, ATE within 1% of the path, one kernel
+     launch per frame. Then one mapping step from identical copies of
      the final map on the card and on the CPU: the integer tables after
      cull, triangulate and fuse equal; after local BA, keyframe poses
      within 1e-3, 99% of the window's landmarks within 1e-3 and inlier
@@ -30,7 +39,8 @@ Phases, each fatal on failure:
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
-result, when no CUDA device is present. Uses no JAX.
+result, when no CUDA device is present. Uses no JAX and nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ N_FRAMES = 40
 KITTI_W, KITTI_H = 1241, 376
 MAP_POSE_ATOL = 1e-3   # card vs CPU after local BA (tests/test_torch_gpu.py)
 MAP_INLIER_AGREE = 0.99
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at a 700 W limit
+FP32_FLOPS_PER_S = 67e12    # float32 outside the tensor cores, same source
 
 
 def card_line() -> str:
@@ -77,6 +89,90 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, per_graph: int = 20, reps: int = 20) -> float:
+    """Device time of one fn() in ms: CUDA events around replays of a CUDA
+    graph holding `per_graph` calls, median over `reps`, divided by
+    `per_graph` (no host time between the launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(per_graph):
+            fn()
+    return cuda_ms(g.replay, reps=reps) / per_graph
+
+
+def device_kernels(fn):
+    """(count, device ms) of the device activities (kernels, copies, sets)
+    that one fn() runs, from torch.profiler with CUDA activity, and the
+    device ms of those whose name holds "orb_describe"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    orb = [e for e in dev if "orb_describe" in e.name]
+    ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3
+    return len(dev), ms(dev), ms(orb)
+
+
+def kitti_settings(Settings, K, bf):
+    """The benchmark configuration (`bench.py:45-65`) cut to the smoke
+    run: mapping and relocalization off."""
+    return Settings(
+        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+        cy=float(K[1, 2]), bf=float(bf), width=KITTI_W, height=KITTI_H,
+        n_features=2000, n_levels=8, th_depth=35.0, fps=10.0,
+        max_points=65536, max_keyframes=256, local_window=2048,
+        enable_local_mapping=False, enable_relocalization=False,
+    )
+
+
+def kernel_bound(levels, xy, spec, OK):
+    """(bound ms, "bytes" or "operations", bytes, float32 ops) of one
+    `orb_describe` call on these inputs: each input read once and each
+    output written once, over the memory rate; the blur of the rows and
+    columns each patch needs plus the moments, over the float32 rate."""
+    import numpy as np
+
+    B, n = xy.shape[0], xy.shape[1]
+    level_px = sum(h * w for h, w in spec.sizes)
+    nbytes = (B * level_px * 4 + xy.numel() * 4 + OK.N_BINS * 256 * 4
+              + B * n * (4 + OK.N_WORDS * 4))
+    row_off = np.cumsum([0] + [h for h, _ in spec.sizes])
+    widths = np.array([w for _, w in spec.sizes])
+    d = np.arange(OK.PATCH) - OK.C
+    n_circle = int((d[:, None] ** 2 + d[None, :] ** 2 <= OK.R_C ** 2).sum())
+    flops = 0
+    for pts in xy.cpu():
+        cy, cx = (c.numpy().astype(np.int64) for c in OK.patch_corners(
+            pts, spec, [int(r) for r in row_off[:-1]]))
+        rows = cy[:, None] + np.arange(OK.PATCH)[None, :]
+        in_level = rows < row_off[-1]
+        lv = np.searchsorted(row_off, np.minimum(rows, row_off[-1] - 1),
+                             side="right") - 1
+        cols = np.clip(widths[lv] - cx[:, None], 0, OK.PATCH)
+        # vertical pass: 46 window columns a row; horizontal: the columns
+        # inside the level; 7 multiplies and 7 adds an output
+        flops += int((in_level * (14 * (OK.PATCH + 6) + 14 * cols)).sum())
+        flops += n * 4 * n_circle
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes, flops
+
+
 def bit_agreement(d1, d2) -> float:
     import numpy as np
 
@@ -92,10 +188,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
 
-    from splslam_tpu.io.synthetic import ate_rmse, make_stereo_sequence, path_length
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence, path_length
     from splslam_tpu_torch.ops import orb_kernel as OK
-    from splslam_tpu_torch.ops.orb import detect_and_pack
+    from splslam_tpu_torch.ops.orb import detect
     from splslam_tpu_torch.ops.pyramid import PyramidSpec
+    from splslam_tpu_torch.slam.frame import build_frame_stereo
     from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
 
     # ---- 1. the card ----
@@ -113,40 +210,53 @@ def main() -> None:
     lib = OK.build()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.path.name}")
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "stack", "smem")):
             print(f"  ptxas: {line.strip()}")
+    blocks = lib.lib.orb_describe_occupancy()
+    print(f"occupancy: {blocks} resident blocks (slots) per SM, "
+          f"{blocks * 4} warps of 64")
 
-    # ---- 3. kernel vs plain at main-path shapes ----
+    # ---- 3. kernel vs plain at main-path shapes, both images ----
     K, bf, frames, gt = make_stereo_sequence(
         n_frames=N_FRAMES, width=KITTI_W, height=KITTI_H,
         fx=718.0, baseline=0.54, motion="forward", seed=3,
     )
-    st = Settings(
-        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
-        cy=float(K[1, 2]), bf=float(bf), width=KITTI_W, height=KITTI_H,
-        n_features=2000, n_levels=8, th_depth=35.0, fps=10.0,
-        max_points=65536, max_keyframes=256, local_window=2048,
-        enable_local_mapping=False, enable_relocalization=False,
-    )
+    st = kitti_settings(Settings, K, bf)
     spec = PyramidSpec.create(KITTI_H, KITTI_W, st.n_levels, st.scale_factor,
                               st.n_features)
-    img = torch.from_numpy(frames[0][0].astype(np.uint8)).cuda().float()
-    _, packed, cy, cx = detect_and_pack(img, spec)
-    ang_k, desc_k = OK.orb_describe(packed, cy, cx)
-    ang_p, desc_p = OK.orb_describe_reference(packed, cy, cx)
+    found = [detect(torch.from_numpy(f.astype(np.uint8)).cuda().float(), spec)
+             for f in frames[0]]
+    levels = [lv for lv, _ in found]
+    xy = torch.stack([torch.cat([d[1] for d in det]) for _, det in found])
+    ang_k, desc_k = OK.orb_describe(levels, xy, spec)
+    ang_p, desc_p = OK.orb_describe_reference(levels, xy, spec)
     torch.cuda.synchronize()
     err = float((ang_k - ang_p).abs().max())
     agree = bit_agreement(desc_k, desc_p)
     words = float((desc_k == desc_p).float().mean())
-    print(f"orb_describe vs plain at N={cy.shape[0]}, packed "
-          f"{tuple(packed.shape)}: angle max abs err {err:.3e} rad, "
-          f"desc bits agree {agree:.6f}, words equal {words:.6f}")
+    print(f"orb_describe vs plain, B={xy.shape[0]} x N={xy.shape[1]} slots, "
+          f"{spec.n_levels} levels of {KITTI_W}x{KITTI_H}: angle max abs err "
+          f"{err:.3e} rad, desc bits agree {agree:.6f}, words equal {words:.6f}")
     if not (np.isfinite(err) and err <= ANGLE_ATOL and agree >= BIT_AGREE):
         raise SystemExit("chip_smoke: kernel disagrees with its plain version")
-    k_ms = cuda_ms(lambda: OK.orb_describe(packed, cy, cx))
-    p_ms = cuda_ms(lambda: OK.orb_describe_reference(packed, cy, cx))
-    print(f"orb_describe: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-          f"(median of 20, N={cy.shape[0]}) on {card}")
+
+    def replaced():
+        for pyr, pts in zip(levels, xy):
+            _, row_off = OK.pack_pyramid(pyr, spec)
+            OK.patch_corners(pts, spec, row_off)
+
+    k_ms = graph_ms(lambda: OK.orb_describe(levels, xy, spec))
+    call_ms = cuda_ms(lambda: OK.orb_describe(levels, xy, spec))
+    p_ms = cuda_ms(lambda: OK.orb_describe_reference(levels, xy, spec))
+    r_ms = cuda_ms(replaced)
+    bound_ms, bound_by, nbytes, flops = kernel_bound(levels, xy, spec, OK)
+    print(f"orb_describe: kernel {k_ms:.5f} ms on the device (graph of 20), "
+          f"wrapper call {call_ms:.5f} ms, plain {p_ms:.4f} ms, replaced "
+          f"blur+pack+corners {r_ms:.4f} ms (CUDA events, median of 20) on {card}")
+    print(f"orb_describe bound: {nbytes} B -> {nbytes / HBM_BYTES_PER_S * 1e3:.5f} "
+          f"ms, {flops} float32 ops -> {flops / FP32_FLOPS_PER_S * 1e3:.5f} ms; "
+          f"bound {bound_ms:.5f} ms by {bound_by}, kernel at "
+          f"{bound_ms / k_ms:.3f} of it")
 
     # ---- 4. the main path at the benchmark configuration ----
     sysm = System(st, Sensor.STEREO, "cuda")
@@ -177,11 +287,16 @@ def main() -> None:
         and bool(np.isfinite(est).all()),
         "n_kfs >= 1": sysm.n_kfs >= 1,
         "ATE within 1% of path": ate <= gate,
-        ">= 2 kernel launches per frame": launches >= 2 * N_FRAMES,
+        "one kernel launch per frame": launches == N_FRAMES,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: main path failed: {failed}")
+    imgs = torch.from_numpy(np.stack(frames[-1]).astype(np.uint8)).cuda()
+    n_dev, dev_ms, orb_ms = device_kernels(lambda: build_frame_stereo(
+        imgs[0].float(), imgs[1].float(), sysm.cam, sysm.spec))
+    print(f"build_frame_stereo: {n_dev} device kernels (torch.profiler, CUDA "
+          f"activity), {dev_ms:.3f} ms device time, orb_describe {orb_ms:.5f} ms")
 
     map_launches = mapping_phase(st, frames, gt, card)
 
@@ -194,6 +309,13 @@ def main() -> None:
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "library_why": "no single PyTorch call computes blur, IC angle and "
+                       "steered BRIEF",
+        "replaced_ms": r_ms,
+        "call_ms": call_ms,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -208,7 +330,7 @@ def mapping_phase(st, frames, gt, card):
     import numpy as np
     import torch
 
-    from splslam_tpu.io.synthetic import ate_rmse, path_length
+    from splslam_tpu_torch.io.synthetic import ate_rmse, path_length
     from splslam_tpu_torch.ops import orb_kernel as OK
     from splslam_tpu_torch.slam import mapping_ops as MO
     from splslam_tpu_torch.slam.map import KeyFrames
@@ -283,7 +405,7 @@ def mapping_phase(st, frames, gt, card):
         "a step created landmarks": max(created, default=0) > 0,
         "a BA had inlier edges": max(inliers, default=0) > 0,
         "ATE within 1% of path": ate <= gate,
-        ">= 2 kernel launches per frame": launches >= 2 * len(frames),
+        "one kernel launch per frame": launches == len(frames),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:

@@ -2,17 +2,18 @@
 
 The JAX package `splslam_tpu` is the reference; this package mirrors its
 layout and module names so each module's counterpart is easy to find.
-It imports `torch` and never `jax`. The only module it borrows from the
-reference is the numpy-only `splslam_tpu.io.synthetic`, and only in
-tests and `chip_smoke.py`.
+It imports `torch` and never `jax`, and nothing of the JAX package: the
+synthetic sequences it is driven with are its own copy,
+`splslam_tpu_torch.io.synthetic`.
 
 Slices covered so far: stereo, points only (the reference's benchmark
 path), with local mapping (cull, triangulate, fuse, local BA, keyframe
 culling) on by default — `slam.system.System(settings, Sensor.STEREO,
 device)`.
-The ORB patch/descriptor stage runs as a hand-written CUDA kernel on a
-GPU (`ops/orb_kernel.py`, `csrc/orb_describe.cu`) and as its plain
-PyTorch version on the CPU.
+The ORB orientation/descriptor stage (with the descriptor blur) runs as
+a hand-written CUDA kernel on a GPU, one launch for both images of a
+stereo frame (`ops/orb_kernel.py`, `csrc/orb_describe.cu`), and as its
+plain PyTorch version on the CPU.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,12 @@
 """Multi-level ORB extraction (port of splslam_tpu/ops/orb.py::extract_orb).
 
 Detection (pyramid, dense FAST + NMS, grid top-k) runs per level in
-plain PyTorch. Orientation and descriptors for all levels run in one
-call of `ops.orb_kernel.orb_describe` over the packed blurred pyramid
-(the CUDA kernel on a GPU, its plain version on the CPU). The packing
-(levels stacked row-wise, bf16, 8 pad rows, 256 pad columns) and the
-corner clamping are the reference's, so both implementations take
-identical arguments.
+plain PyTorch. Orientation and descriptors for all levels, of one image
+or of both images of a stereo frame, run in one call of
+`ops.orb_kernel.orb_describe` on the unblurred levels and the
+detections (the CUDA kernel on a GPU, its plain version on the CPU; the
+blur, the reference's packing and the corner clamping are part of that
+call).
 
 `OrbFeatures` drops the reference's `bits` field: the +-1 bit planes
 exist there only to feed TPU matrix-unit matmuls.
@@ -18,10 +18,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from splslam_tpu_torch.ops.fast import fast_corners
-from splslam_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid, gaussian_blur
+from splslam_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid
 from splslam_tpu_torch.ops.topk import grid_topk
 
 HALF_PATCH = 15          # orientation patch radius (reference HALF_PATCH_SIZE)
@@ -54,38 +53,25 @@ class OrbFeatures(NamedTuple):
         return self.xy.shape[0]
 
 
-def _lane_pad(w: int) -> int:
-    return -(-w // 128) * 128
-
-
-def detect_and_pack(
+def detect(
     image: torch.Tensor,
     spec: PyramidSpec,
     threshold: float = 12.0,
     cell: int = 16,
     cell_k: int = 4,
 ):
-    """Detection plus the descriptor kernel's inputs. Returns (det,
-    packed, corner_y, corner_x): per-level (level, xy, response, valid)
-    detections, the packed bf16 blurred pyramid and the int32 patch
-    corners of all detections, in order."""
-    from splslam_tpu_torch.ops.orb_kernel import C, PATCH
-
+    """Detection for one image (H,W) f32. Returns (levels, det): the
+    unblurred pyramid levels and, per level with a budget, (level, xy,
+    response, valid) with xy in level coordinates; the concatenated xy
+    are the descriptor stage's slots, in order."""
     dev = image.device
     levels = build_pyramid(image, spec)
-    Wp = _lane_pad(spec.sizes[0][1])
     det = []
-    blur_rows = []
-    row_off = []
-    acc = 0
     b = EDGE_THRESHOLD
     for lv, img in enumerate(levels):
-        H, W = spec.sizes[lv]
-        blur_rows.append(F.pad(gaussian_blur(img), (0, Wp - W)))
-        row_off.append(acc)
-        acc += H
         if spec.budgets[lv] == 0:
             continue
+        H, W = spec.sizes[lv]
         score = fast_corners(img, threshold)
         inside = torch.zeros((H, W), dtype=torch.bool, device=dev)
         inside[b:H - b, b:W - b] = True
@@ -93,34 +79,12 @@ def detect_and_pack(
         xy, resp, valid = grid_topk(score, spec.budgets[lv], cell=cell,
                                     cell_k=cell_k)
         det.append((lv, xy, resp, valid))
-    packed = torch.cat(
-        blur_rows + [torch.zeros((8, Wp), dtype=torch.float32, device=dev)]
-    )
-    packed = F.pad(packed, (0, 256)).to(torch.bfloat16)
-
-    cys, cxs = [], []
-    for (lv, xy, _, _) in det:
-        xi = xy.to(torch.int32)
-        cys.append(torch.clamp(xi[:, 1] - C + row_off[lv], 0, acc - PATCH))
-        cxs.append(torch.clamp(xi[:, 0] - C, 0, Wp - PATCH))
-    return det, packed, torch.cat(cys).contiguous(), torch.cat(cxs).contiguous()
+    return levels, det
 
 
-def extract_orb(
-    image: torch.Tensor,
-    spec: PyramidSpec,
-    threshold: float = 12.0,
-    cell: int = 16,
-    cell_k: int = 4,
-) -> OrbFeatures:
-    """Full multi-level ORB extraction for one grayscale image (H,W) f32."""
-    from splslam_tpu_torch.ops.orb_kernel import orb_describe
-
-    dev = image.device
-    det, packed, corner_y, corner_x = detect_and_pack(image, spec, threshold,
-                                                      cell, cell_k)
-    ang, desc = orb_describe(packed, corner_y, corner_x)
-
+def _features(det, spec: PyramidSpec, ang: torch.Tensor,
+              desc: torch.Tensor) -> OrbFeatures:
+    dev = ang.device
     outs = []
     i0 = 0
     for (lv, xy, resp, valid) in det:
@@ -138,3 +102,36 @@ def extract_orb(
         ))
         i0 += budget
     return OrbFeatures(*[torch.cat(xs, dim=0) for xs in zip(*outs)])
+
+
+def _extract_orb(images, spec: PyramidSpec, threshold: float, cell: int,
+                 cell_k: int) -> list[OrbFeatures]:
+    """ORB for one or two grayscale images (H,W) f32: detection per image,
+    then orientation and descriptors of all of them in one
+    `orb_describe` call (one kernel launch on a GPU)."""
+    from splslam_tpu_torch.ops.orb_kernel import orb_describe
+
+    found = [detect(im, spec, threshold, cell, cell_k) for im in images]
+    xy = torch.stack([torch.cat([d[1] for d in det]) for _, det in found])
+    ang, desc = orb_describe([levels for levels, _ in found], xy, spec)
+    return [_features(det, spec, ang[b], desc[b])
+            for b, (_, det) in enumerate(found)]
+
+
+def extract_orb(
+    image: torch.Tensor,
+    spec: PyramidSpec,
+    threshold: float = 12.0,
+    cell: int = 16,
+    cell_k: int = 4,
+) -> OrbFeatures:
+    """Full multi-level ORB extraction for one grayscale image (H,W) f32."""
+    return _extract_orb([image], spec, threshold, cell, cell_k)[0]
+
+
+def extract_orb_pair(left: torch.Tensor, right: torch.Tensor,
+                     spec: PyramidSpec, threshold: float = 12.0,
+                     cell: int = 16, cell_k: int = 4):
+    """ORB for both images of a stereo frame, described in one call.
+    Returns (left features, right features)."""
+    return tuple(_extract_orb([left, right], spec, threshold, cell, cell_k))

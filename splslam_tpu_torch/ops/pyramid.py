@@ -92,6 +92,11 @@ def _blur_taps(sigma: float, radius: int) -> list[float]:
     return [float(v) for v in (k / k.sum()).astype(np.float32)]
 
 
+# The descriptor blur's 7 float32 taps (sigma 2, radius 3); the ORB
+# kernel takes them from here rather than computing its own.
+BLUR_TAPS = tuple(_blur_taps(2.0, 3))
+
+
 def gaussian_blur(image: torch.Tensor, sigma: float = 2.0,
                   radius: int = 3) -> torch.Tensor:
     """Separable Gaussian blur with zero padding (the reference blurs with

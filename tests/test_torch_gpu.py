@@ -1,5 +1,6 @@
 """Tests that need a CUDA device: the hand-written `orb_describe` kernel
-against its plain PyTorch version, and the port on the GPU against the
+against its plain PyTorch version (main-path shapes, edge-case slots,
+rejected inputs), and the port on the GPU against the
 port on the CPU (tracking alone, tracking with local mapping, and one
 mapping step from identical maps). Every test skips on a host without a
 card.
@@ -22,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from splslam_tpu.io.synthetic import ate_rmse, make_stereo_sequence
+from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence
 from splslam_tpu_torch.ops import orb as TO
 from splslam_tpu_torch.ops import orb_kernel as OK
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
@@ -50,52 +51,91 @@ def bit_agreement(d1, d2) -> float:
     return float((b1 == b2).mean())
 
 
-def assert_describe_agrees(packed, cy, cx):
+def edge_case_inputs(n_levels, n_images, seed):
+    """Random float32 pyramid levels at a small spec and slots that reach
+    every corner of the kernel's geometry: (0,0); y < 19 on every level,
+    whose patch starts in the previous level (or is clamped to the top);
+    a valid slot on the bottom border (y = H-20, whose patch ends one row
+    into the next level); the right and bottom edges, columns past the
+    level's width, points outside the level and fractional coordinates;
+    the rest random. At 8 levels the smallest levels are shorter than a
+    patch, so one patch spans three levels. Returns (spec, levels as
+    numpy [image][level], xy f32 [n_images, N, 2])."""
+    H, W, nf = {1: (48, 100, 16), 4: (120, 160, 40), 8: (96, 128, 64)}[n_levels]
+    spec = PyramidSpec.create(H, W, n_levels, 1.2, nf)
+    rng = np.random.default_rng(seed)
+    levels = [[rng.uniform(0, 255, hw).astype(np.float32) for hw in spec.sizes]
+              for _ in range(n_images)]
+    xy = np.empty((n_images, spec.total_capacity, 2), np.float32)
+    for b in range(n_images):
+        i0 = 0
+        for lv, budget in enumerate(spec.budgets):
+            h, w = spec.sizes[lv]
+            fixed = [(0, 0), (w / 2, 5), (w / 3, h - 20), (w - 1, h - 1),
+                     (w - 1, h / 2), (10.7, 18.9), (w + 30, h + 30), (-3, -2)]
+            pts = np.stack([rng.uniform(0, w, budget),
+                            rng.uniform(0, h, budget)], -1)
+            m = min(budget, len(fixed))
+            pts[:m] = fixed[:m]
+            xy[b, i0:i0 + budget] = pts
+            i0 += budget
+    return spec, levels, xy
+
+
+def assert_describe_agrees(levels, xy, spec):
     before = OK.orb_describe.launches
-    a_k, d_k = OK.orb_describe(packed, cy, cx)
-    a_p, d_p = OK.orb_describe_reference(packed, cy, cx)
+    a_k, d_k = OK.orb_describe(levels, xy, spec)
+    a_p, d_p = OK.orb_describe_reference(levels, xy, spec)
     torch.cuda.synchronize()
     assert OK.orb_describe.launches == before + 1
+    assert a_k.shape == a_p.shape and d_k.shape == d_p.shape
     assert float((a_k - a_p).abs().max()) <= ANGLE_ATOL
     assert bit_agreement(d_k, d_p) >= BIT_AGREE
 
 
 def test_kernel_matches_plain_at_main_path_shapes(cuda):
-    """KITTI 1241x376, 2000 features, 8 levels: packed bf16 [1739, 1536]."""
+    """KITTI 1241x376, 2000 features, 8 levels, both images of a stereo
+    frame in one launch."""
     _, _, frames, _ = make_stereo_sequence(
         n_frames=1, width=1241, height=376, fx=718.0, baseline=0.54,
         motion="forward", seed=3)
-    img = torch.from_numpy(frames[0][0].astype(np.uint8)).to(cuda).float()
-    _, packed, cy, cx = TO.detect_and_pack(
-        img, PyramidSpec.create(376, 1241, 8, 1.2, 2000))
-    assert tuple(packed.shape) == (1739, 1536) and cy.shape[0] == 2000
-    assert_describe_agrees(packed, cy, cx)
+    spec = PyramidSpec.create(376, 1241, 8, 1.2, 2000)
+    found = [TO.detect(torch.from_numpy(f.astype(np.uint8)).to(cuda).float(),
+                       spec) for f in frames[0]]
+    xy = torch.stack([torch.cat([d[1] for d in det]) for _, det in found])
+    assert tuple(xy.shape) == (2, 2000, 2)
+    assert_describe_agrees([lv for lv, _ in found], xy, spec)
 
 
-@pytest.mark.parametrize("n", [1, 7, 33, 130])
-def test_kernel_ragged_counts_and_clamped_corners(cuda, n):
-    """Counts that leave a block partly empty, and corners outside the
-    buffer, which kernel and plain version both clamp."""
-    rng = np.random.default_rng(n)
-    packed = torch.from_numpy(rng.uniform(0, 256, (300, 400)).astype(np.float32))
-    packed = packed.to(cuda).to(torch.bfloat16)
-    cy = torch.from_numpy(rng.integers(-50, 320, n).astype(np.int32)).to(cuda)
-    cx = torch.from_numpy(rng.integers(-50, 420, n).astype(np.int32)).to(cuda)
-    assert_describe_agrees(packed, cy, cx)
+@pytest.mark.parametrize("n_levels,n_images", [(1, 1), (1, 2), (4, 1), (4, 2),
+                                               (8, 1), (8, 2)])
+def test_kernel_edge_slots(cuda, n_levels, n_images):
+    """Straddling, clamped and out-of-level slots, ragged level budgets,
+    patches over two and three levels and over the zero rows."""
+    spec, levels, xy = edge_case_inputs(n_levels, n_images, seed=n_levels)
+    levels = [[torch.from_numpy(x).to(cuda) for x in pyr] for pyr in levels]
+    assert_describe_agrees(levels, torch.from_numpy(xy).to(cuda), spec)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    packed = torch.zeros((64, 64), dtype=torch.bfloat16, device=cuda)
-    c = torch.zeros(8, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        OK.orb_describe(packed.float(), c, c)
-    with pytest.raises(ValueError):
-        OK.orb_describe(packed, c.long(), c)
-    with pytest.raises(ValueError):
-        strided = torch.zeros(16, dtype=torch.int32, device=cuda)[::2]
-        OK.orb_describe(packed, strided, strided)
-    with pytest.raises(ValueError):
-        OK.orb_describe(packed, c.cpu(), c.cpu())
+    spec, levels, xy = edge_case_inputs(4, 2, seed=0)
+    lv = [[torch.from_numpy(x).to(cuda) for x in pyr] for pyr in levels]
+    xy = torch.from_numpy(xy).to(cuda)
+    bad = [
+        ([[x.double() for x in pyr] for pyr in lv], xy),        # dtype
+        ([pyr[:-1] for pyr in lv], xy),                         # level count
+        ([[x[:, :-1] for x in pyr] for pyr in lv], xy),         # shape
+        ([[x.t().contiguous().t() for x in pyr] for pyr in lv], xy),  # strides
+        ([[x.cpu() for x in pyr] for pyr in lv], xy),           # device
+        (lv, xy.to(torch.int32)),                               # xy dtype
+        (lv, xy[:, :-1].contiguous()),                          # slot count
+        (lv, xy.transpose(0, 1).contiguous().transpose(0, 1)),  # xy strides
+        (lv[:1], xy),                                           # batch
+        (lv + lv[:1], torch.cat([xy, xy[:1]])),                 # B = 3
+    ]
+    for levels_arg, xy_arg in bad:
+        with pytest.raises(ValueError):
+            OK.orb_describe(levels_arg, xy_arg, spec)
 
 
 def test_extract_orb_gpu_matches_cpu(cuda):
@@ -134,7 +174,7 @@ def test_system_gpu_matches_cpu(cuda):
         assert sysm.get_tracking_state() == TS.TrackingState.OK
         runs.append((sysm, OK.orb_describe.launches - before))
     (sc, lc), (sg, lg) = runs
-    assert lc == 0 and lg >= 2 * len(frames)
+    assert lc == 0 and lg == len(frames)  # one launch per stereo frame
     assert sg.n_kfs == sc.n_kfs
     pc, pg = sc.poses(), sg.poses()
     np.testing.assert_allclose(pg[:, :3, :4], pc[:, :3, :4], atol=1e-3)

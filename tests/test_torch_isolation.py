@@ -1,7 +1,7 @@
 """The PyTorch port stands without JAX: importing it (and chip_smoke.py)
-loads no jax module, its sources import no JAX-backed module of the
-reference package, and chip_smoke.py fails — printing no result — on a
-host without a CUDA device (there is no CPU fallback)."""
+loads no jax module, its sources, chip_smoke.py and the card's test file
+import nothing of the JAX package, and chip_smoke.py fails — printing no
+result — on a host without a CUDA device (there is no CPU fallback)."""
 
 import os
 import re
@@ -30,9 +30,10 @@ def test_importing_the_port_loads_no_jax():
     )
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r} + ['chip_smoke', 'splslam_tpu.io.synthetic']:\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'splslam_tpu' or m.startswith('splslam_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -42,9 +43,10 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_port_sources_import_no_jax_module():
-    allowed = {"splslam_tpu.io.synthetic"}
+    allowed = set()
     pat = re.compile(r"^\s*(?:import|from)\s+(jax\b|splslam_tpu\.[\w.]+)", re.M)
-    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (list(PORT.rglob("*.py"))
+             + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"])
     assert len(files) > 15
     for p in files:
         for m in pat.findall(p.read_text()):
