@@ -20,7 +20,8 @@ Phases, each fatal on failure:
   4. drive the port's main path, `System(..., device="cuda").track_stereo`,
      over 40 KITTI-sized synthetic stereo frames at the benchmark
      configuration (2000 features, 8 levels, 65536 points, 256 keyframes,
-     2048-landmark local window; local mapping and relocalization off):
+     2048-landmark local window; local mapping, relocalization and loop
+     closing off):
      the run must stay OK with no frame lost, keep ATE-RMSE within 1% of
      the path length, and launch the kernel exactly once per frame. Then
      count the device kernels of one `build_frame_stereo` call with
@@ -35,7 +36,30 @@ Phases, each fatal on failure:
      the final map on the card and on the CPU: the integer tables after
      cull, triangulate and fuse equal; after local BA, keyframe poses
      within 1e-3, 99% of the window's landmarks within 1e-3 and inlier
-     masks >= 99% equal.
+     masks >= 99% equal;
+  6. relocalization at the same configuration with the JAX package's
+     defaults (relocalization and loop detection on, the bundled 10^5-word
+     vocabulary, read from the JAX package's assets by path), local mapping
+     on and a keyframe every 4 frames: track the 40 frames, then 3 blank
+     frames (the state must be LOST, with no reset; each runs a
+     relocalization that finds nothing), then replay frame 20 twice: the
+     state must be OK and the last pose within 0.05 m of ground truth
+     (tests/test_reloc.py's gate). On this sequence the JAX package's
+     reference-keyframe fallback recovers the replay before a
+     relocalization is needed, so the map is then saved, loaded into a
+     fresh System (which starts LOST with no tracker state and
+     relocalizes every frame) and frame 20 replayed twice: both frames
+     relocalize within 0.05 m, with `ref_kf` the winning BoW candidate.
+     Every keyframe has a BoW row, the loop counters of `health()` are 0,
+     and the kernel runs once per frame built. Prints the ms of
+     `_try_relocalize` and its attempts, of `_register_kf_bow`, of
+     `loop_closer.on_keyframe`, and the frame median beside phase 5's;
+  7. loop verification on a rectangular circuit over a textured plane
+     (tests/test_loop.py's scene and settings: 320x240, 500 features, 4
+     levels, correction off): state OK, at least one verified loop with
+     kf - cand >= 5, no correction, no correction-path guard. Prints the
+     verified loops, the guarded verifications and the ms of
+     `compute_sim3_attempt`.
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -129,13 +153,15 @@ def device_kernels(fn):
 
 def kitti_settings(Settings, K, bf):
     """The benchmark configuration (`bench.py:45-65`) cut to the smoke
-    run: mapping and relocalization off."""
+    run: local mapping, relocalization and loop closing off (phases 5 and
+    6 turn them on)."""
     return Settings(
         fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
         cy=float(K[1, 2]), bf=float(bf), width=KITTI_W, height=KITTI_H,
         n_features=2000, n_levels=8, th_depth=35.0, fps=10.0,
         max_points=65536, max_keyframes=256, local_window=2048,
         enable_local_mapping=False, enable_relocalization=False,
+        enable_loop_closing=False,
     )
 
 
@@ -298,14 +324,16 @@ def main() -> None:
     print(f"build_frame_stereo: {n_dev} device kernels (torch.profiler, CUDA "
           f"activity), {dev_ms:.3f} ms device time, orb_describe {orb_ms:.5f} ms")
 
-    map_launches = mapping_phase(st, frames, gt, card)
+    map_launches, map_frame_ms = mapping_phase(st, frames, gt, card)
+    reloc_launches = reloc_phase(st, frames, gt, card, map_frame_ms)
+    loop_launches = loop_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
         "route": "cuda",
         "source": "splslam_tpu_torch/csrc/orb_describe.cu",
         "replaces": "splslam_tpu/ops/orb_pallas.py:172",
-        "launches": launches + map_launches,
+        "launches": launches + map_launches + reloc_launches + loop_launches,
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -457,6 +485,245 @@ def mapping_phase(st, frames, gt, card):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: mapping step card vs CPU failed: {failed}")
+    return launches, float(np.median(times[10:]))
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, sink: list, device):
+    """fn wrapped to append its synced wall ms to `sink`."""
+    def run(*args, **kw):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        _sync(device)
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def _ms(xs) -> str:
+    import numpy as np
+
+    return (f"median {np.median(xs):.2f} ms over {len(xs)} (min {min(xs):.2f}, "
+            f"max {max(xs):.2f})") if xs else "not run"
+
+
+def reloc_phase(st, frames, gt, card, map_frame_ms, device="cuda", view=20):
+    """Phase 6. Returns the kernel launches of the run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.bow import vocabulary as V
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.slam import reloc as R
+    from splslam_tpu_torch.slam.system import Sensor, System, TrackingState
+
+    st = dataclasses.replace(st, enable_local_mapping=True, force_kf_every=4,
+                             enable_relocalization=True, enable_loop_closing=True)
+    ms = {"reloc": [], "bow": [], "loop": []}
+    attempts: list[list[int]] = []   # n_inliers of each attempt, per call
+    wins = []                        # (expected winner, ref_kf, Tcw)
+    run_attempt = R.reloc_attempt
+
+    def counted_attempt(*args, **kw):
+        out = run_attempt(*args, **kw)
+        attempts[-1].append(int(out[1]))
+        return out
+
+    def instrument(sysm):
+        try_reloc = _timed(sysm._try_relocalize, ms["reloc"], device)
+
+        def checked_reloc(step_state, ts):
+            # the candidate order, recomputed: the three best BoW scores
+            f, v, kfs = step_state.frame, sysm.vocab, sysm.map.kfs
+            q = V.query_bow(v.level_desc, v.weights, v.k, v.depth, f.feat.desc,
+                            f.feat.valid)
+            sc = R.reloc_scores(sysm.kf_bow.ids, sysm.kf_bow.vals, kfs.valid, q,
+                                torch.zeros_like(kfs.valid)).cpu().numpy()
+            order = [int(c) for c in np.argsort(sc)[::-1][:3] if c < sysm.n_kfs]
+            attempts.append([])
+            ok = try_reloc(step_state, ts)
+            if ok:
+                won = order[next(i for i, x in enumerate(attempts[-1])
+                                 if x >= st.reloc_min_inliers)]
+                wins.append((won, sysm.ref_kf, sysm.last_Tcw_np.copy()))
+            return ok
+
+        sysm._try_relocalize = checked_reloc
+        sysm._register_kf_bow = _timed(sysm._register_kf_bow, ms["bow"], device)
+        sysm.loop_closer.on_keyframe = _timed(sysm.loop_closer.on_keyframe,
+                                              ms["loop"], device)
+        return sysm
+
+    sysm = instrument(System(st, Sensor.STEREO, device))
+    R.reloc_attempt = counted_attempt
+    times = []
+    blank = np.full(frames[0][0].shape, 128, np.uint8)
+    try:
+        OK.orb_describe.launches = 0
+        for i, (l, r) in enumerate(frames):
+            _sync(device)
+            t0 = time.perf_counter()
+            sysm.track_stereo(l, r, i * 0.1)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        tracked = sysm.get_tracking_state()
+        n_kfs = sysm.n_kfs
+        for j in range(3):
+            sysm.track_stereo(blank, blank, 10.0 + j * 0.1)
+        lost = sysm.get_tracking_state()
+        n_blank_calls = len(attempts)
+        for j in range(2):
+            sysm.track_stereo(*frames[view], 11.0 + j * 0.1)
+        state = sysm.get_tracking_state()
+        replay_err = float(np.linalg.norm(sysm.poses()[-1][:3, 3]
+                                          - gt[view][:3, 3]))
+        n_kidnap_wins = len(wins)
+        # the relocalization itself: a fresh System on the saved map
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/map.npz"
+            sysm.save_map(path)
+            loaded = instrument(System(st, Sensor.STEREO, device))
+            loaded.load_map(path)
+        for j in range(2):
+            loaded.track_stereo(*frames[view], 12.0 + j * 0.1)
+        reloc_state = loaded.get_tracking_state()
+        launches = OK.orb_describe.launches
+    finally:
+        R.reloc_attempt = run_attempt
+    n_built = len(frames) + 7
+    health = sysm.health()
+    W = sysm.bow_n_words
+    rows = [bool((sysm.kf_bow.ids[k] < W).any()) for k in range(sysm.n_kfs)]
+    err = [float(np.linalg.norm(np.linalg.inv(T)[:3, 3] - gt[view][:3, 3]))
+           for _, _, T in wins]
+    print(f"relocalization: {len(frames)} frames ({tracked.name}, {n_kfs} "
+          f"keyframes), 3 blank -> {lost.name} ({n_blank_calls} relocalization "
+          f"calls), frame {view} twice -> {state.name} (relocalized "
+          f"{n_kidnap_wins} times; last pose {replay_err:.5f} m from ground "
+          f"truth, gate 0.05); saved map loaded, frame {view} twice -> "
+          f"{reloc_state.name}: (winner, ref_kf) "
+          f"{[(w, k) for w, k, _ in wins]}, error {err} m; n_inliers of the "
+          f"attempts per call {attempts}; kernel launches {launches} for "
+          f"{n_built} frames; health {health}")
+    print(f"_try_relocalize: {_ms(ms['reloc'])}, synced, on {card}")
+    print(f"_register_kf_bow: {_ms(ms['bow'])}; loop_closer.on_keyframe: "
+          f"{_ms(ms['loop'])}; synced, on {card}")
+    print(f"track_stereo with relocalization and loop detection on: median "
+          f"{np.median(times[10:]):.2f} ms/frame over frames 10-"
+          f"{len(frames) - 1} (phase 5: {map_frame_ms:.2f}) on {card}")
+    checks = {
+        "OK after tracking": tracked == TrackingState.OK,
+        "LOST after the blank frames, no reset":
+            lost == TrackingState.LOST and sysm.n_kfs >= n_kfs > 5,
+        "relocalization tried on every blank frame": n_blank_calls == 3,
+        "OK after the replay, within 0.05 m":
+            state == TrackingState.OK and replay_err < 0.05,
+        "loaded map: both frames relocalized within 0.05 m":
+            reloc_state == TrackingState.OK and len(wins) == n_kidnap_wins + 2
+            and max(err) < 0.05,
+        "ref_kf is the winning candidate": all(w == k for w, k, _ in wins),
+        "every keyframe has a BoW row": all(rows),
+        "loop counters 0": all(health[k] == 0 for k in (
+            "loop_guarded", "loop_verify_guarded", "loop_corrections",
+            "verified_loops")),
+        "one kernel launch per frame":
+            launches == n_built or torch.device(device).type != "cuda",
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: relocalization failed: {failed}")
+    return launches
+
+
+def circuit(n_long=30, n_short=14, step=0.15, W=320, H=240, FX=200.0,
+            BASE=0.12):
+    """tests/test_loop.py's scene: a rectangular circuit over a textured
+    plane (right, down, left, up, then a re-traverse of the first leg), so
+    the start is re-entered through fresh scenery and the revisited
+    keyframes are not covisible with the old ones."""
+    import numpy as np
+
+    from splslam_tpu_torch.io.synthetic import PlaneScene, make_texture
+
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], np.float32)
+    scene = PlaneScene(make_texture(seed=0), z0=2.0, z1=5.0)
+    xy = []
+    x = y = 0.0
+    for n, dx, dy in ((n_long, step, 0), (n_short, 0, step), (n_long, -step, 0),
+                      (n_short, 0, -step), (10, step, 0)):
+        for _ in range(n):
+            xy.append((x, y))
+            x, y = x + dx, y + dy
+    poses, frames = [], []
+    for i, (px, py) in enumerate(xy):
+        Twc = np.eye(4)
+        Twc[0, 3] = px
+        Twc[1, 3] = py + 0.01 * np.sin(i * 0.4)
+        poses.append(Twc.copy())
+        Twc_r = Twc.copy()
+        Twc_r[0, 3] += BASE
+        frames.append((scene.render(K, Twc, H, W), scene.render(K, Twc_r, H, W)))
+    return K, FX * BASE, frames, np.stack(poses)
+
+
+def loop_phase(card, device="cuda"):
+    """Phase 7. Returns the kernel launches of the run."""
+    import torch
+
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.slam import loop_closing as LC
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    K, bf, frames, _ = circuit()
+    st = Settings(
+        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+        cy=float(K[1, 2]), bf=float(bf), width=320, height=240,
+        n_features=500, n_levels=4, th_depth=60.0, fps=5,
+        max_points=16384, max_keyframes=64, local_window=1024,
+        enable_local_mapping=True, enable_loop_correction=False,
+    )
+    sysm = System(st, Sensor.STEREO, device)
+    sim3_ms: list[float] = []
+    run_sim3 = LC.compute_sim3_attempt
+    LC.compute_sim3_attempt = _timed(run_sim3, sim3_ms, device)
+    t0 = time.perf_counter()
+    try:
+        OK.orb_describe.launches = 0
+        for i, (l, r) in enumerate(frames):
+            sysm.track_stereo(l, r, i * 0.2)
+        state = sysm.get_tracking_state()
+        launches = OK.orb_describe.launches
+    finally:
+        LC.compute_sim3_attempt = run_sim3
+    wall = time.perf_counter() - t0
+    lc = sysm.loop_closer
+    health = sysm.health()
+    print(f"loop circuit: {len(frames)} frames in {wall:.1f} s, state "
+          f"{state.name}, keyframes {sysm.n_kfs}, verified loops "
+          f"{lc.verified_loops}, n_guarded_verify {lc.n_guarded_verify}, "
+          f"kernel launches {launches}, health {health}")
+    print(f"compute_sim3_attempt: {_ms(sim3_ms)}, synced, on {card}")
+    checks = {
+        "state OK": state == TrackingState.OK,
+        "a verified loop with kf - cand >= 5":
+            any(kf - cand >= 5 for kf, cand in lc.verified_loops),
+        "no correction": health["loop_corrections"] == 0,
+        "n_guarded == 0": lc.n_guarded == 0,
+        "one kernel launch per frame":
+            launches == len(frames) or torch.device(device).type != "cuda",
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: loop verification failed: {failed}")
     return launches
 
 

@@ -1,0 +1,73 @@
+"""Card-vs-CPU spread of one local BA step of the PyTorch port, repeated.
+
+    python3 scripts/port_ba_spread.py [--root DIR] [--reps 4]
+
+Imports `splslam_tpu_torch` from DIR (default: the checkout that holds
+this script), so that two trees can be compared in turns on one card.
+Builds the map of `tests/test_torch_gpu.py::test_mapping_step_gpu_matches_cpu`
+on the CPU (13 frames of the 320x240 forward sequence, a keyframe every
+4 frames), then `--reps` times runs `map_upkeep` + `local_ba` on its last
+keyframe from identical copies on the card and on the CPU, and prints per
+repeat the 99th percentile and the largest distance between the two
+runs' window landmarks, the largest keyframe-pose difference and the
+inlier agreement (the test's gates: q99 <= 1e-3, poses <= 1e-3,
+agreement >= 0.99).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--reps", type=int, default=4)
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("port_ba_spread: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from splslam_tpu_torch.io.synthetic import make_stereo_sequence
+    from splslam_tpu_torch.slam import mapping_ops as TMO
+    from splslam_tpu_torch.slam import system as TS
+
+    K, bf, frames, _ = make_stereo_sequence(n_frames=13, motion="forward",
+                                            width=320, height=240)
+    kw = dict(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+              cy=float(K[1, 2]), bf=float(bf), width=320, height=240,
+              n_features=600, n_levels=4, th_depth=40.0, fps=10,
+              max_points=8192, max_keyframes=64, local_window=1024,
+              force_kf_every=4)
+    sysm = TS.System(TS.Settings(**kw), TS.Sensor.STEREO, "cpu")
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.1)
+    sysm.drain()
+    kf = sysm.n_kfs - 1
+    for rep in range(args.reps):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            m = sysm.map.to(dev)
+            m = m._replace(kfs=type(m.kfs)(*[x[:32] for x in m.kfs]))
+            m, _ = TMO.map_upkeep(m, kf, sysm.cam, sysm.scales.to(dev), 1.2, 4)
+            m, prob, res = TMO.local_ba(m, kf, sysm.cam, 1.2, 4)
+            out[dev] = (prob, res)
+        (pc, rc), (_, rg) = out["cpu"], out["cuda"]
+        d = (rg.xyz.cpu() - rc.xyz).norm(dim=-1)[pc.lm_ok]
+        agree = (rg.e_inlier.cpu() == rc.e_inlier)[pc.e_ok].float().mean()
+        print(f"{args.root} rep {rep}: landmarks {int(pc.lm_ok.sum())}, q99 "
+              f"{float(torch.quantile(d, 0.99)):.3e}, max {float(d.max()):.3e}, "
+              f"pose {float((rg.Tcw.cpu() - rc.Tcw).abs().max()):.3e}, "
+              f"inlier agreement {float(agree):.5f}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,11 @@ synthetic sequences it is driven with are its own copy,
 
 Slices covered so far: stereo, points only (the reference's benchmark
 path), with local mapping (cull, triangulate, fuse, local BA, keyframe
-culling) on by default — `slam.system.System(settings, Sensor.STEREO,
-device)`.
+culling), BoW relocalization and loop detection with Sim3 verification
+on by default, and loop correction off as in the reference —
+`slam.system.System(settings, Sensor.STEREO, device)`. The BoW
+vocabularies are the JAX package's bundled `.npz` files, read by path as
+data.
 The ORB orientation/descriptor stage (with the descriptor blur) runs as
 a hand-written CUDA kernel on a GPU, one launch for both images of a
 stereo frame (`ops/orb_kernel.py`, `csrc/orb_describe.cu`), and as its

@@ -2,7 +2,7 @@
 
 The system has no weights: its "parameters" are its device state. These
 functions turn the reference's `FrameData` / `MapState` / `StepState` /
-`LocalWindow` — NamedTuples whose leaves are numpy arrays, as
+`LocalWindow` / `Vocab` / `BowTable` — NamedTuples whose leaves are numpy arrays, as
 `jax.device_get` returns them — into the port's tensors on a device, and
 back. uint32 descriptors cross as an int32 view of the same bits; the
 reference's `OrbFeatures.bits` cache is dropped on the way in.
@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from splslam_tpu_torch.bow.vocabulary import BowTable, Vocab
 from splslam_tpu_torch.ops.lines import LineFeatures
 from splslam_tpu_torch.ops.orb import OrbFeatures
 from splslam_tpu_torch.optim.ba import BAProblem, BAResult
@@ -119,3 +120,17 @@ def ba_problem_to_numpy(p: BAProblem) -> BAProblem:
 
 def ba_result_to_numpy(r: BAResult) -> BAResult:
     return _tree_to(r)
+
+
+def vocab_from_numpy(v, device) -> Vocab:
+    """The reference's `Vocab` (uint32 level tables) -> the port's."""
+    return Vocab(tuple(_tensor(d, device) for d in v.level_desc),
+                 _tensor(v.weights, device), int(v.k), int(v.depth))
+
+
+def bow_table_from_numpy(t, device) -> BowTable:
+    return _from(BowTable, t, device)
+
+
+def bow_table_to_numpy(t: BowTable) -> BowTable:
+    return _tree_to(t)

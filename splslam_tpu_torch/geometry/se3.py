@@ -1,8 +1,10 @@
-"""SE(3) exponential map and retraction (port of splslam_tpu/geometry/se3.py).
+"""SE(3) exponential map and retraction, and the Sim(3) group (port of
+splslam_tpu/geometry/se3.py).
 
 Poses are 4x4 float32 matrices (world-to-camera `Tcw`); tangents are
-`[rho(3), phi(3)]`. The small-angle series branches are the reference's
-`where` selections, so both sides take the same branch on the same input.
+`[rho(3), phi(3)]`, and `[rho, phi, sigma]` for Sim(3). The small-angle
+series branches are the reference's `where` selections, so both sides
+take the same branch on the same input.
 All products run in float32; callers keep TF32 off on a GPU.
 """
 
@@ -59,9 +61,10 @@ def _left_jacobian(phi: torch.Tensor) -> torch.Tensor:
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(R (...,3,3), t (...,3)) -> homogeneous (...,4,4)."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype,
-                         device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # [0, 0, 0, 1] made on the device: writing a Python number into a CUDA
+    # tensor copies it from the host and stalls the stream
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(
+        R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -75,3 +78,76 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
 def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative update exp(xi) @ T (g2o VertexSE3Expmap)."""
     return se3_exp(xi) @ T
+
+
+# ---------------------------------------------------------------------------
+# Sim(3), carried as (s, R, t): scale, rotation, translation.
+# ---------------------------------------------------------------------------
+
+
+def sim3_exp(xi: torch.Tensor):
+    """Tangent [rho(3), phi(3), sigma(1)] -> (s, R, t), t = W @ rho.
+
+    The four small-angle / small-scale limits are `where` selections whose
+    unselected branches divide by a safe denominator (1.0), so the map and
+    its forward-mode derivative stay finite at xi = 0, where every limit
+    branch is taken (Strasdat's Sim(3) exponential, as the reference)."""
+    if xi.dim() == 1:
+        # Forward-mode AD promotes the tangent of a 0-dim tensor combined
+        # with a Python float to float64; keep the scalars 1-D.
+        return tuple(v[0] for v in sim3_exp(xi[None]))
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(phi)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    K = hat(phi)
+
+    sig_small = torch.abs(sigma) < 1e-5
+    th_small = theta < 1e-5
+    sig_safe = torch.where(sig_small, 1.0, sigma)
+    th2_safe = torch.where(th_small, 1.0, theta2)
+    th_safe = torch.where(th_small, 1.0, theta)
+    c2 = sigma * sigma + theta2
+    c2_safe = torch.where(c2 < _EPS, 1.0, c2)
+
+    C = torch.where(sig_small, 1.0, (s - 1.0) / sig_safe)
+    a_ss = s * torch.sin(theta)
+    b_sc = s * torch.cos(theta)
+    # A multiplies K
+    A_gen = (a_ss * sigma + (1.0 - b_sc) * theta) / (th_safe * c2_safe)
+    A_sig0 = (1.0 - torch.cos(theta)) / th2_safe
+    A_th0 = torch.where(sig_small, 0.5,
+                        ((sigma - 1.0) * s + 1.0) / (sig_safe * sig_safe))
+    A = torch.where(th_small, A_th0, torch.where(sig_small, A_sig0, A_gen))
+    # B multiplies K @ K
+    B_gen = (C - ((b_sc - 1.0) * sigma + a_ss * theta) / c2_safe) / th2_safe
+    B_sig0 = (theta - torch.sin(theta)) / (th2_safe * th_safe)
+    B_th0 = torch.where(
+        sig_small, 1.0 / 6.0,
+        ((0.5 * sigma * sigma - sigma + 1.0) * s - 1.0)
+        / (sig_safe * sig_safe * sig_safe))
+    B = torch.where(th_small, B_th0, torch.where(sig_small, B_sig0, B_gen))
+
+    W = (C[..., None, None] * _eye_like(K) + A[..., None, None] * K
+         + B[..., None, None] * (K @ K))
+    t = (W @ rho[..., :, None])[..., 0]
+    return s, R, t
+
+
+def sim3_apply(s, R, t, pts: torch.Tensor) -> torch.Tensor:
+    """s R p + t for points (..., N, 3)."""
+    return s[..., None, None] * (pts @ R.transpose(-1, -2)) + t[..., None, :]
+
+
+def sim3_inverse(s, R, t):
+    Rt = R.transpose(-1, -2)
+    s_inv = torch.reciprocal(s)   # no Python float: see sim3_exp
+    return s_inv, Rt, -s_inv[..., None] * (Rt @ t[..., :, None])[..., 0]
+
+
+def sim3_compose(a, b):
+    """Compose Sim3 a o b (apply b first)."""
+    sa, Ra, ta = a
+    sb, Rb, tb = b
+    return sa * sb, Ra @ Rb, sa[..., None] * (Ra @ tb[..., :, None])[..., 0] + ta

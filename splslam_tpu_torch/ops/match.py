@@ -34,6 +34,22 @@ def hamming(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     return ((256.0 - dot) * 0.5).to(torch.int32)
 
 
+def _popcount16(v: torch.Tensor) -> torch.Tensor:
+    v = v - ((v >> 1) & 0x5555)
+    v = (v & 0x3333) + ((v >> 2) & 0x3333)
+    v = (v + (v >> 4)) & 0x0F0F
+    return (v + (v >> 8)) & 0x1F
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Exact per-word popcount of int32 words holding uint32 bits (torch
+    has no popcount op). Each word is split into two 16-bit halves, each
+    masked non-negative before the SWAR sum, so the arithmetic right
+    shift of a negative int32 never leaks a sign bit and nothing can
+    overflow."""
+    return _popcount16(x & 0xFFFF) + _popcount16((x >> 16) & 0xFFFF)
+
+
 def masked_distances(
     dist: torch.Tensor, valid1: torch.Tensor, valid2: torch.Tensor,
     extra_mask: torch.Tensor | None = None,

@@ -33,6 +33,7 @@ import torch
 
 from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops import match as M
+from splslam_tpu_torch.ops.match import popcount32
 from splslam_tpu_torch.optim.ba import BAProblem, _inv3, ba_solve
 from splslam_tpu_torch.slam.map import (KeyFrames, MapState, covisibility_counts,
                                         predict_octave, scale_band)
@@ -373,22 +374,6 @@ def fuse_neighbors(st: MapState, cam: Camera, scales: torch.Tensor, kf: int,
     pts.valid.copy_(pts.valid & ~merged)
     pts.n_obs.add_(gain)
     return st
-
-
-def _popcount16(v: torch.Tensor) -> torch.Tensor:
-    v = v - ((v >> 1) & 0x5555)
-    v = (v & 0x3333) + ((v >> 2) & 0x3333)
-    v = (v + (v >> 4)) & 0x0F0F
-    return (v + (v >> 8)) & 0x1F
-
-
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Exact per-word popcount of int32 words holding uint32 bits (torch
-    has no popcount op). Each word is split into two 16-bit halves, each
-    masked non-negative before the SWAR sum, so the arithmetic right
-    shift of a negative int32 never leaks a sign bit and nothing can
-    overflow."""
-    return _popcount16(x & 0xFFFF) + _popcount16((x >> 16) & 0xFFFF)
 
 
 def _window_lookup(lm_ids: torch.Tensor, P: int) -> torch.Tensor:

@@ -11,10 +11,19 @@ and the per-frame relative-pose trajectory log (src/System.cc:369-395).
 After each keyframe insertion the local mapper runs the mapping step
 (`slam/local_mapping.py`); its stats are read one keyframe late.
 
-This slice is stereo, points only, with local mapping (on by default, as
-in the reference); relocalization and loop closing are off. Asking for
-either, for lines, or for a mono or RGB-D sensor raises
-NotImplementedError; nothing is dropped silently.
+After each keyframe its BoW row enters the keyframe database
+(`bow/vocabulary.py`) and, with loop closing on, the loop closer runs
+detection and Sim3 verification (`slam/loop_closing.py`), recording
+verified loops without correcting them, as the reference's kill-switch
+does. A frame that fails the lost gate is relocalized against the
+keyframe database (`slam/reloc.py`) before it is declared LOST.
+
+This slice is stereo, points only, with the JAX package's defaults:
+local mapping, relocalization and loop detection on, loop correction
+off. Asking for loop correction, for the ORB-SLAM2 text vocabulary, for
+lines, or for a mono or RGB-D sensor raises NotImplementedError;
+nothing is dropped silently. `save_map` / `load_map` write and read the
+JAX package's checkpoint keys, so either package loads the other's map.
 """
 
 from __future__ import annotations
@@ -26,11 +35,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from splslam_tpu_torch import convert
+from splslam_tpu_torch.bow import vocabulary as V
 from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
-from splslam_tpu_torch.slam import pipeline
+from splslam_tpu_torch.slam import pipeline, reloc
 from splslam_tpu_torch.slam.frame import LINES_LATER, FrameData, build_frame_stereo
 from splslam_tpu_torch.slam.local_mapping import LocalMapper
+from splslam_tpu_torch.slam.loop_closing import CORRECTION_LATER, LoopCloser
 from splslam_tpu_torch.slam.map import MapState
 from splslam_tpu_torch.slam.pipeline import StepState
 from splslam_tpu_torch.slam.tracking import bow_free_refkf_match
@@ -63,9 +75,8 @@ def track_lost(n_in: int, n_ln_in: int, using_line: bool,
 
 @dataclass
 class Settings:
-    """Flat config mirroring the reference YAML keys. Relocalization and
-    loop closing default to off here: they belong to later slices and
-    raise if enabled."""
+    """Flat config mirroring the reference YAML keys, with the JAX
+    package's defaults."""
 
     # Camera.*
     fx: float = 500.0
@@ -98,9 +109,15 @@ class Settings:
     enable_local_mapping: bool = True
     local_ba_rounds: int = 2
     local_ba_iters: int = 5
-    # later slices (raise if enabled)
-    enable_relocalization: bool = False
-    enable_loop_closing: bool = False
+    # relocalization / loop detection
+    enable_relocalization: bool = True
+    vocabulary_path: str | None = None  # None -> bundled vocabulary (.npz)
+    reloc_min_inliers: int = 50         # reference Tracking.cc:3049
+    # loop closing: detection + Sim3 verification when a vocabulary is
+    # loaded; correction off, the reference's kill-switch
+    # (src/LoopClosing.cc:390-392); True is a later slice and raises
+    enable_loop_closing: bool = True
+    enable_loop_correction: bool = False
     # keyframe policy
     min_kf_gap: int = 1
     force_kf_every: int = 0
@@ -128,10 +145,10 @@ def _check_slice(settings: Settings, sensor: Sensor):
         raise NotImplementedError(f"{sensor.name} sensor: later slice")
     if settings.using_line:
         raise NotImplementedError(LINES_LATER)
-    for flag, what in (("enable_relocalization", "relocalization (vocabulary)"),
-                       ("enable_loop_closing", "loop closing (vocabulary)")):
-        if getattr(settings, flag):
-            raise NotImplementedError(f"{what}: later slice")
+    if settings.enable_loop_correction:
+        raise NotImplementedError(CORRECTION_LATER)
+    if (settings.vocabulary_path or "").endswith(".txt"):
+        raise NotImplementedError("ORB-SLAM2 text vocabulary: later slice")
 
 
 class System:
@@ -154,6 +171,10 @@ class System:
             float(settings.bf) / settings.fx * settings.th_depth
             if settings.bf > 0 else 1e9
         )
+        # the BoW vocabulary (None -> the largest bundled one)
+        self.vocab = (V.load(settings.vocabulary_path or V.default_vocab_path(),
+                             self.device)
+                      if settings.enable_relocalization else None)
         self._reset_runtime()
 
     def _reset_runtime(self):
@@ -175,7 +196,19 @@ class System:
         self._pending: deque = deque()   # (stats, ts, step_state, frame_id)
         self._pending_kf_out = None      # keyframe-creation output
         self._frames_lost = 0
+        self._last_reloc_fid = -(10 ** 9)
+        # The keyframe database: one sparse BoW row per keyframe slot
+        # (reference KeyFrameDatabase, include/KeyFrameDatabase.h:66).
+        if self.vocab is not None:
+            self.bow_n_words = self.vocab.n_words
+            self.kf_bow = V.BowTable.empty(s.max_keyframes,
+                                           self.spec.total_capacity,
+                                           self.bow_n_words, self.device)
+        else:
+            self.bow_n_words = 0
+            self.kf_bow = None
         self.mapper = LocalMapper(self)
+        self.loop_closer = LoopCloser(self)
         # Bumped by loop correction / global BA (later slices): a mapping
         # result dispatched before a bump is stale.
         self.map_version = 0
@@ -196,6 +229,17 @@ class System:
                                        self.cam, self.spec)
             self._stereo_initialize(frame, timestamp)
             return self.last_Tcw_np.copy()
+        if self.step is None:
+            # LOST with no live tracker state (right after load_map): build
+            # the frame and go straight to relocalization.
+            frame = build_frame_stereo(imgs[0].float(), imgs[1].float(),
+                                       self.cam, self.spec)
+            step = StepState.fresh(
+                frame, torch.from_numpy(self.last_Tcw_np).to(self.device))
+            if self.vocab is not None and self.n_kfs > 0:
+                self._try_relocalize(step, timestamp)
+            self.frame_id += 1
+            return self.last_Tcw_np.copy()
         self.map, new_step, stats = pipeline.vo_frame_step(
             imgs, self.map, self.step, self.th_depth_m, self.ref_kf,
             self.cam, self.spec, self.scales,
@@ -210,14 +254,20 @@ class System:
         return self.state
 
     def health(self) -> dict:
-        """Solver-guard counters of the mapping steps so far. A healthy
-        run has mapping_state_revert == 0; mapping_guarded is transient
-        and only its rate is bounded; mapping_lm_singular is benign."""
+        """Solver-guard counters so far. A healthy run has
+        mapping_state_revert == 0 and loop_guarded == 0; mapping_guarded is
+        transient and only its rate is bounded; mapping_lm_singular is
+        benign; loop_verify_guarded counts degenerate Sim3 verifications
+        (rejected by the count gates)."""
         return {
             "mapping_guarded": self.mapper.n_guarded,
             "mapping_state_revert": self.mapper.n_state_revert,
             "mapping_lm_singular": self.mapper.n_lm_singular,
+            "loop_guarded": self.loop_closer.n_guarded,
+            "loop_verify_guarded": self.loop_closer.n_guarded_verify,
             "mapping_steps": self.mapper.n_steps,
+            "loop_corrections": self.loop_closer.corrections,
+            "verified_loops": len(self.loop_closer.verified_loops),
         }
 
     def reset(self):
@@ -249,6 +299,7 @@ class System:
         n_mm = int(stats[pipeline.S_N_MM])
         n_in = int(stats[pipeline.S_N_IN])
         n_ln_in = int(stats[pipeline.S_N_LN_IN])
+        recent_reloc = fid < self._last_reloc_fid + int(self.settings.fps)
         Tcw_np = stats[pipeline.S_POSE].reshape(4, 4).astype(np.float32)
 
         if n_mm < 20 or n_in < 10:
@@ -269,7 +320,12 @@ class System:
                 if fid == self.frame_id:
                     self.step = step_state
 
-        if track_lost(n_in, n_ln_in, self.settings.using_line):
+        if track_lost(n_in, n_ln_in, self.settings.using_line, recent_reloc):
+            # Relocalization (reference Tracking.cc:2895): BoW candidates ->
+            # PnP RANSAC -> GN refine, accepted at >= reloc_min_inliers.
+            if self.vocab is not None and self.n_kfs > 0:
+                if self._try_relocalize(step_state, ts):
+                    return
             self.state = TrackingState.LOST
             self._frames_lost += 1
             # Lost right after init with a tiny map: full reset
@@ -288,6 +344,65 @@ class System:
             self.frames_since_kf += 1
         self.last_Tcw_np = Tcw_np
         self._log_frame(ts, Tcw_np, lost=False)
+
+    def _register_kf_bow(self, kf: int, frame: FrameData):
+        """Compute and store the keyframe's BoW row (KeyFrameDatabase::add,
+        reference src/KeyFrameDatabase.cc:40)."""
+        if self.vocab is None:
+            return
+        v = self.vocab
+        V.update_bow_row(self.kf_bow.ids, self.kf_bow.vals, v.level_desc,
+                         v.weights, v.k, v.depth, frame.feat.desc,
+                         frame.feat.valid, kf)
+
+    def _try_relocalize(self, step_state: StepState, ts: float) -> bool:
+        """Try the three best BoW candidates in turn; on the first attempt
+        with >= reloc_min_inliers, adopt its pose and associations."""
+        frame = step_state.frame
+        v = self.vocab
+        query = V.query_bow(v.level_desc, v.weights, v.k, v.depth,
+                            frame.feat.desc, frame.feat.valid)
+        kfs = self.map.kfs
+        scores = reloc.reloc_scores(
+            self.kf_bow.ids, self.kf_bow.vals, kfs.valid, query,
+            torch.zeros_like(kfs.valid))
+        # Ties go to the higher index, as the reference's host argsort.
+        order = np.argsort(scores.cpu().numpy())[::-1][:3]
+        gen = torch.Generator(device=self.device)
+        for c in order:
+            c = int(c)
+            if c >= self.n_kfs:
+                continue
+            lm = kfs.lm_idx[c]
+            gen.manual_seed(self.frame_id)   # one seed per frame, as the reference
+            Tcw, n_in, lm_gid, ll_gid = reloc.reloc_attempt(
+                self.cam, frame, kfs.desc[c], kfs.fvalid[c], lm,
+                self.map.pts.xyz[lm.clamp(min=0).long()], generator=gen)
+            if int(n_in) < self.settings.reloc_min_inliers:
+                continue
+            Tcw_np = Tcw.cpu().numpy().astype(np.float32)
+            lsafe = ll_gid.clamp(min=0).long()
+            corrected = step_state._replace(
+                lm_gid=lm_gid,
+                lm_xyz=self.map.pts.xyz[lm_gid.clamp(min=0).long()],
+                Tcw=Tcw,
+                velocity=torch.eye(4, device=self.device),
+                ll_gid=ll_gid,
+                ll_xyz3=self.map.lns.xyz[lsafe],
+                ll_len=self.map.lns.avg_len2d[lsafe],
+            )
+            # Don't rewind the live tracker if a newer frame was already
+            # dispatched; the relocalized pose still enters the log.
+            if step_state is self.step:
+                self.step = corrected
+            self.state = TrackingState.OK
+            self._frames_lost = 0
+            self._last_reloc_fid = self.frame_id
+            self.ref_kf = c
+            self.last_Tcw_np = Tcw_np
+            self._log_frame(ts, Tcw_np, lost=False)
+            return True
+        return False
 
     def _track_refkf(self, frame: FrameData):
         k = self.ref_kf
@@ -323,6 +438,7 @@ class System:
         self.last_Tcw_np = np.eye(4, dtype=np.float32)
         self._log_frame(ts, self.last_Tcw_np, lost=False)
         self.frame_id += 1
+        self._register_kf_bow(kf, frame)
         self.mapper.on_keyframe(kf)
 
     def _need_new_keyframe(self, stats: np.ndarray, n_in: int) -> bool:
@@ -361,7 +477,10 @@ class System:
         if step_state is self.step:
             self.step = new_state
         self._pending_kf_out = out
+        self._register_kf_bow(kf, step_state.frame)
         self.mapper.on_keyframe(kf)
+        if self.settings.enable_loop_closing:
+            self.loop_closer.on_keyframe(kf)
 
     def _resolve_kf_out(self):
         if self._pending_kf_out is not None:
@@ -452,3 +571,66 @@ def _rot_to_quat(R: np.ndarray) -> np.ndarray:
     q[k] = (R[k, i] + R[i, k]) / s
     q[3] = (R[k, j] - R[j, k]) / s
     return q
+
+
+# ----------------------------------------------------------------------
+# Map checkpoints in the JAX package's `.npz` layout: `{group}.{field}`
+# for the point, line and keyframe tables (descriptors as uint32), the
+# counters, and `meta.*` for the host state and the BoW rows.
+# ----------------------------------------------------------------------
+def save_map(system: System, path: str) -> None:
+    """Checkpoint the map and enough tracker state to relocalize into it
+    after loading."""
+    system.drain()
+    m = convert.map_state_to_numpy(system.map)
+    d = {f"{g}.{f}": getattr(getattr(m, g), f)
+         for g in ("pts", "lns", "kfs") for f in getattr(m, g)._fields}
+    d.update(n_pts=m.n_pts, n_lns=m.n_lns, n_kfs=m.n_kfs)
+    d["meta.n_kfs_host"] = np.int64(system.n_kfs)
+    d["meta.ref_kf"] = np.int64(system.ref_kf)
+    if system.kf_bow is not None:
+        bow = convert.bow_table_to_numpy(system.kf_bow)
+        d["meta.kf_bow_ids"] = bow.ids
+        d["meta.kf_bow_vals"] = bow.vals
+    np.savez_compressed(path, **d)
+
+
+def load_map(system: System, path: str) -> None:
+    """Restore a checkpoint into a fresh System (same Settings). The
+    system starts LOST and relocalizes against the loaded map."""
+    z = np.load(path)
+    m = system.map
+    groups = {g: type(getattr(m, g))(*[z[f"{g}.{f}"]
+                                       for f in getattr(m, g)._fields])
+              for g in ("pts", "lns", "kfs")}
+    system.map = convert.map_state_from_numpy(
+        MapState(**groups, n_pts=z["n_pts"], n_lns=z["n_lns"],
+                 n_kfs=z["n_kfs"]), system.device)
+    system.n_kfs = int(z["meta.n_kfs_host"])
+    system.ref_kf = int(z["meta.ref_kf"])
+    if system.kf_bow is not None and "meta.kf_bow_ids" in z:
+        system.kf_bow = V.BowTable(
+            torch.from_numpy(z["meta.kf_bow_ids"]).to(system.device),
+            torch.from_numpy(z["meta.kf_bow_vals"]).to(system.device))
+    elif system.kf_bow is not None and "meta.kf_bow" in z:
+        # Checkpoints from before the sparse table hold the dense [K, W]
+        # matrix: compact each row.
+        dense = np.asarray(z["meta.kf_bow"])
+        K, W = dense.shape
+        S = system.kf_bow.ids.shape[1]
+        ids = np.full((K, S), W, np.int32)
+        vals = np.zeros((K, S), np.float32)
+        for k in range(K):
+            nz = np.flatnonzero(dense[k])[:S]
+            ids[k, : len(nz)] = nz
+            vals[k, : len(nz)] = dense[k, nz]
+        system.kf_bow = V.BowTable(torch.from_numpy(ids).to(system.device),
+                                   torch.from_numpy(vals).to(system.device))
+    kf_Tcw = system.map.kfs.Tcw[: system.n_kfs].cpu().numpy()
+    for k in range(system.n_kfs):
+        system.kf_pose_host[k] = kf_Tcw[k]
+    system.state = TrackingState.LOST
+
+
+System.save_map = save_map
+System.load_map = load_map

@@ -1,8 +1,9 @@
 """Tests that need a CUDA device: the hand-written `orb_describe` kernel
 against its plain PyTorch version (main-path shapes, edge-case slots,
 rejected inputs), and the port on the GPU against the
-port on the CPU (tracking alone, tracking with local mapping, and one
-mapping step from identical maps). Every test skips on a host without a
+port on the CPU (tracking alone, tracking with local mapping, one
+mapping step from identical maps, the BoW transform and keyframe rows,
+and a kidnap with relocalization). Every test skips on a host without a
 card.
 
 This file imports no JAX (a GPU host need not have it, and
@@ -17,17 +18,23 @@ on the GPU). One mapping step: the integer tables after cull, triangulate
 and fuse exact; after local BA, keyframe poses within 1e-3, 99% of the
 window's landmarks within 1e-3 (a landmark seen by two keyframes slides
 along its ray) and inlier masks >= 99% equal (GPU atomics sum the normal
-equations in another order)."""
+equations in another order). BoW word ids and row ids exact (integer
+popcounts). Kidnap: the same tracking states and lost frames, the same
+relocalization keyframe, poses within 1e-3 (with the RANSAC draws made
+equal: each device's own generator draws another stream, and the
+relocalized pose follows the inlier set the draw finds)."""
 
 import numpy as np
 import pytest
 import torch
 
+from splslam_tpu_torch.bow import vocabulary as TV
 from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence
 from splslam_tpu_torch.ops import orb as TO
 from splslam_tpu_torch.ops import orb_kernel as OK
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
 from splslam_tpu_torch.slam import mapping_ops as TMO
+from splslam_tpu_torch.slam import reloc as TR
 from splslam_tpu_torch.slam import system as TS
 
 pytestmark = pytest.mark.gpu
@@ -237,3 +244,121 @@ def test_mapping_step_gpu_matches_cpu(cuda):
     agree = (rg.e_inlier.cpu() == rc.e_inlier)[pc.e_ok].float().mean()
     assert float(agree) >= 0.99
     assert int(rg.n_state_revert) == int(rc.n_state_revert) == 0
+
+
+def test_bow_rows_gpu_match_cpu(cuda):
+    """The 10^5-word tree descent and keyframe rows of real ORB features."""
+    _, _, frames, _ = make_stereo_sequence(n_frames=8, motion="forward",
+                                           width=320, height=240)
+    spec = PyramidSpec.create(240, 320, 4, 1.2, 600)
+    out = {}
+    for dev in ("cpu", cuda):
+        v = TV.load(TV.default_vocab_path(), dev)
+        table = TV.BowTable.empty(3, spec.total_capacity, v.n_words, dev)
+        words = []
+        for row, i in enumerate((0, 4, 7)):
+            f = TO.extract_orb(torch.from_numpy(frames[i][0]).to(dev).float(), spec)
+            words.append(TV.transform_words(v, f.desc, f.valid).cpu())
+            TV.update_bow_row(table.ids, table.vals, v.level_desc, v.weights,
+                              v.k, v.depth, f.desc, f.valid, row)
+        out[str(dev)] = (words, table.ids.cpu(), table.vals.cpu())
+    (wc, ic, vc), (wg, ig, vg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(wg, wc):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(ig, ic, rtol=0, atol=0)
+    torch.testing.assert_close(vg, vc, rtol=0, atol=1e-6)
+
+
+def test_kidnap_gpu_matches_cpu(cuda, tmp_path, monkeypatch):
+    """tests/test_reloc.py's kidnap (15 frames, 3 blank, frame 6 twice)
+    with the defaults: relocalization and loop detection on. Then the map
+    is saved and loaded into a fresh System, which relocalizes frame 6.
+    The RANSAC draws are made equal on both devices (drawn from a CPU
+    generator with the device generator's seed), so the poses differ only
+    by float arithmetic."""
+    draw = TR.sample_minimal_sets
+
+    def host_draw(generator, mask, n_hyp, m):
+        gen = torch.Generator().manual_seed(generator.initial_seed())
+        return draw(gen, mask.cpu(), n_hyp, m).to(mask.device)
+
+    monkeypatch.setattr(TR, "sample_minimal_sets", host_draw)
+    K, bf, frames, gt = make_stereo_sequence(n_frames=15, motion="forward",
+                                             width=320, height=240)
+    blank = np.full((240, 320), 128.0, np.float32)
+    runs = []
+    for dev in ("cpu", cuda):
+        sysm = TS.System(_settings(K, bf), TS.Sensor.STEREO, dev)
+        won = []
+        attempt = sysm._try_relocalize
+
+        def recorded(step_state, ts, sysm=sysm, attempt=attempt, won=won):
+            ok = attempt(step_state, ts)
+            if ok:
+                won.append((sysm.ref_kf, sysm.last_Tcw_np.copy()))
+            return ok
+
+        sysm._try_relocalize = recorded
+        states = []
+        for i, (l, r) in enumerate(frames):
+            sysm.track_stereo(l, r, i * 0.1)
+        states.append(sysm.get_tracking_state())
+        for j in range(3):
+            sysm.track_stereo(blank, blank, 1.5 + j * 0.1)
+        states.append(sysm.get_tracking_state())
+        for j in range(2):
+            sysm.track_stereo(frames[6][0], frames[6][1], 2.0 + j * 0.1)
+        states.append(sysm.get_tracking_state())
+        path = str(tmp_path / f"{dev}.npz")
+        sysm.save_map(path)
+        loaded = TS.System(_settings(K, bf), TS.Sensor.STEREO, dev)
+        loaded.load_map(path)
+        loaded.track_stereo(frames[6][0], frames[6][1], 3.0)
+        states.append(loaded.get_tracking_state())
+        won.append((loaded.ref_kf, loaded.last_Tcw_np.copy()))
+        runs.append((sysm, states, won))
+    (sc, stc, wc), (sg, stg, wg) = runs
+    assert stc == stg == [TS.TrackingState.OK, TS.TrackingState.LOST,
+                          TS.TrackingState.OK, TS.TrackingState.OK]
+    assert [e.lost for e in sg.trajectory] == [e.lost for e in sc.trajectory]
+    assert [k for k, _ in wg] == [k for k, _ in wc]
+    for (_, a), (_, b) in zip(wg, wc):
+        np.testing.assert_allclose(a, b, atol=1e-3)
+    np.testing.assert_allclose(sg.poses()[:, :3, :4], sc.poses()[:, :3, :4], atol=1e-3)
+    assert np.linalg.norm(sg.poses()[-1][:3, 3] - gt[6][:3, 3]) < 0.05
+
+
+def test_reloc_and_sim3_attempts_do_not_sync(cuda):
+    """No value of a relocalization attempt, a BoW row or a Sim3
+    verification is read back to the host inside the call (the accept
+    decisions read it once, afterwards)."""
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    K, bf, frames, _ = make_stereo_sequence(n_frames=9, motion="forward",
+                                            width=320, height=240)
+    sysm = TS.System(_settings(K, bf, force_kf_every=2), TS.Sensor.STEREO, cuda)
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.1)
+    sysm.drain()
+    assert sysm.n_kfs >= 3
+    frame, kfs, v = sysm.step.frame, sysm.map.kfs, sysm.vocab
+    lm = kfs.lm_idx[0]
+    xyz = sysm.map.pts.xyz[lm.clamp(min=0).long()]
+    K3 = torch.tensor([[sysm.cam.fx, 0.0, sysm.cam.cx], [0.0, sysm.cam.fy, sysm.cam.cy],
+                       [0.0, 0.0, 1.0]], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = TR.reloc_attempt(sysm.cam, frame, kfs.desc[0], kfs.fvalid[0], lm, xyz,
+                               generator=gen)
+        TV.query_bow(v.level_desc, v.weights, v.k, v.depth, frame.feat.desc,
+                     frame.feat.valid)
+        TV.update_bow_row(sysm.kf_bow.ids, sysm.kf_bow.vals, v.level_desc,
+                          v.weights, v.k, v.depth, frame.feat.desc,
+                          frame.feat.valid, sysm.n_kfs)
+        sim = TLC.compute_sim3_attempt(sysm.map, sysm.n_kfs - 1, 0, K3, True,
+                                       generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out[1]) >= 50 and int(sim[0]) >= TLC.MIN_MATCHES

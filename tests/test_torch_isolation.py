@@ -1,7 +1,12 @@
 """The PyTorch port stands without JAX: importing it (and chip_smoke.py)
 loads no jax module, its sources, chip_smoke.py and the card's test file
 import nothing of the JAX package, and chip_smoke.py fails — printing no
-result — on a host without a CUDA device (there is no CPU fallback)."""
+result — on a host without a CUDA device (there is no CPU fallback).
+
+The port reads the bundled BoW vocabularies, `.npz` files in the JAX
+package's `assets/` folder, by file path as data
+(`splslam_tpu_torch/bow/vocabulary.py::default_vocab_path`): that is no
+import, and the scan below holds it so."""
 
 import os
 import re
@@ -48,6 +53,11 @@ def test_port_sources_import_no_jax_module():
     files = (list(PORT.rglob("*.py"))
              + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"])
     assert len(files) > 15
+    # the relocalization and loop-detection slice is among the scanned files
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"splslam_tpu_torch/bow/vocabulary.py", "splslam_tpu_torch/slam/reloc.py",
+            "splslam_tpu_torch/slam/loop_closing.py",
+            "splslam_tpu_torch/optim/sim3.py"} <= names
     for p in files:
         for m in pat.findall(p.read_text()):
             assert m in allowed, f"{p.relative_to(ROOT)} imports {m}"
@@ -60,3 +70,19 @@ def test_chip_smoke_fails_without_a_gpu():
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
     assert "cuda" in (r.stdout + r.stderr).lower()
+
+
+def test_vocabulary_is_read_by_path_not_imported():
+    code = (
+        "import sys\n"
+        "from splslam_tpu_torch.bow import vocabulary as V\n"
+        "v = V.load(V.default_vocab_path(), 'cpu')\n"
+        "assert v.n_words == 10 ** 5, v.n_words\n"
+        "bad = [m for m in sys.modules if m == 'splslam_tpu'\n"
+        "       or m.startswith('splslam_tpu.') or m.split('.')[0] == 'jax']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")

@@ -393,11 +393,15 @@ def test_last_writer_matches_xla_scatter():
 
 
 def test_popcount32_exact():
+    """The shared popcount (`ops/match.py`), which mapping_ops imports."""
+    from splslam_tpu_torch.ops import match as TM
+
+    assert TMO.popcount32 is TM.popcount32
     rng = np.random.default_rng(11)
     w = rng.integers(0, 2 ** 32, size=4096, dtype=np.uint64).astype(np.uint32)
     w[:4] = [0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF]
     ref = np.unpackbits(w.view(np.uint8)).reshape(-1, 32).sum(1)
-    got = TMO.popcount32(torch.from_numpy(w.view(np.int32))).numpy()
+    got = TM.popcount32(torch.from_numpy(w.view(np.int32))).numpy()
     np.testing.assert_array_equal(got, ref)
 
 

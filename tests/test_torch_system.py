@@ -1,8 +1,11 @@
 """The PyTorch port's stereo slice as a whole, against the JAX System on
 the same 20-frame forward sequence as tests/test_e2e_stereo.py: tracking
-alone (local mapping and relocalization off on both sides), and with
-local mapping on at the reference's pinned keyframe cadence
-(`force_kf_every=4`, tests/test_e2e_parity.py).
+alone (local mapping, relocalization and loop closing off on both sides),
+and with local mapping on at the reference's pinned keyframe cadence
+(`force_kf_every=4`, tests/test_e2e_parity.py). With the JAX defaults
+(relocalization and loop detection on): the kidnap of
+tests/test_reloc.py, a map saved and reloaded, and maps carried between
+the two packages by `save_map` / `load_map`.
 
 Gates: state OK and ATE < 0.05 (the JAX gate); the same keyframes (and,
 with mapping, the same number of mapping steps) as the JAX run;
@@ -11,8 +14,9 @@ of the JAX run — float32 differences accumulate over the sequence
 (measured max 8.1e-6 translation without mapping, 3.4e-4 with it: local
 BA moves the keyframe poses the frames are tracked against); no
 non-finite BA revert (`mapping_state_revert == 0`) on either side;
-equal trajectory export line counts. Slice limits raise
-NotImplementedError."""
+equal trajectory export line counts; after a kidnap, the replayed view
+relocalizes within 0.05 m of ground truth (the JAX gate). Slice limits
+raise NotImplementedError."""
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ import torch
 
 from splslam_tpu.io.synthetic import ate_rmse, make_stereo_sequence
 from splslam_tpu.slam import system as JS
+from splslam_tpu_torch.bow import vocabulary as TV
 from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
 from splslam_tpu_torch.slam import frame as TF
@@ -37,13 +42,18 @@ def settings_kw(K, bf):
     )
 
 
+# the settings of the JAX-vs-port fixtures: relocalization and loop
+# closing off on both sides, so their numbers keep their meaning
+NO_RELOC = dict(enable_relocalization=False, enable_loop_closing=False)
+
+
 @pytest.fixture(scope="module")
 def runs():
     K, bf, frames, gt = make_stereo_sequence(n_frames=20, motion="forward",
                                              width=320, height=240)
-    kw = dict(settings_kw(K, bf), enable_local_mapping=False)
+    kw = dict(settings_kw(K, bf), enable_local_mapping=False, **NO_RELOC)
     ts = TS.System(TS.Settings(**kw), TS.Sensor.STEREO, "cpu")
-    js = JS.System(JS.Settings(**kw, enable_relocalization=False), JS.Sensor.STEREO)
+    js = JS.System(JS.Settings(**kw), JS.Sensor.STEREO)
     for sysm in (ts, js):
         for i, (l, r) in enumerate(frames):
             sysm.track_stereo(l, r, i * 0.1)
@@ -55,9 +65,9 @@ def runs():
 def mapping_runs():
     K, bf, frames, gt = make_stereo_sequence(n_frames=20, motion="forward",
                                              width=320, height=240)
-    kw = dict(settings_kw(K, bf), force_kf_every=4)
+    kw = dict(settings_kw(K, bf), force_kf_every=4, **NO_RELOC)
     ts = TS.System(TS.Settings(**kw), TS.Sensor.STEREO, "cpu")
-    js = JS.System(JS.Settings(**kw, enable_relocalization=False), JS.Sensor.STEREO)
+    js = JS.System(JS.Settings(**kw), JS.Sensor.STEREO)
     for sysm in (ts, js):
         for i, (l, r) in enumerate(frames):
             sysm.track_stereo(l, r, i * 0.1)
@@ -154,9 +164,10 @@ def test_keyframe_policy_knobs_match_jax(policy):
     keyframe after the first comes from the knob under test."""
     K, bf, frames, _ = make_stereo_sequence(n_frames=13, motion="lateral",
                                             width=320, height=240)
-    kw = dict(settings_kw(K, bf), enable_local_mapping=False, **policy)
+    kw = dict(settings_kw(K, bf), enable_local_mapping=False, **NO_RELOC,
+              **policy)
     ts = TS.System(TS.Settings(**kw), TS.Sensor.STEREO, "cpu")
-    js = JS.System(JS.Settings(**kw, enable_relocalization=False), JS.Sensor.STEREO)
+    js = JS.System(JS.Settings(**kw), JS.Sensor.STEREO)
     for sysm in (ts, js):
         for i, (l, r) in enumerate(frames):
             sysm.track_stereo(l, r, i * 0.1)
@@ -194,8 +205,8 @@ def test_reset(runs):
 
 @pytest.mark.parametrize("change", [
     dict(sensor=TS.Sensor.MONOCULAR), dict(sensor=TS.Sensor.RGBD),
-    dict(using_line=True), dict(enable_relocalization=True),
-    dict(enable_loop_closing=True),
+    dict(using_line=True), dict(enable_loop_correction=True),
+    dict(vocabulary_path="ORBvoc.txt"),
 ])
 def test_later_slices_raise(change):
     change = dict(change)
@@ -210,3 +221,127 @@ def test_frame_with_lines_raises():
         TF.build_frame_stereo(img, img, Camera.create(200, 200, 160, 120, bf=24),
                               PyramidSpec.create(240, 320, 4, 1.2, 600),
                               line_capacity=8)
+
+
+def test_settings_defaults_match_jax():
+    for name in ("enable_relocalization", "vocabulary_path", "reloc_min_inliers",
+                 "enable_loop_closing", "enable_loop_correction",
+                 "enable_local_mapping", "min_kf_gap", "async_depth"):
+        assert getattr(TS.Settings(), name) == getattr(JS.Settings(), name), name
+
+
+def _kidnap(sysm, frames, gt, view):
+    """Track, kidnap with 3 blank frames, replay a seen view twice."""
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.1)
+    assert sysm.get_tracking_state() == TS.TrackingState.OK
+    blank = np.full((240, 320), 128.0, np.float32)
+    for j in range(3):
+        sysm.track_stereo(blank, blank, 1.5 + j * 0.1)
+    assert sysm.get_tracking_state() == TS.TrackingState.LOST
+    for j in range(2):
+        sysm.track_stereo(frames[view][0], frames[view][1], 2.0 + j * 0.1)
+    assert sysm.get_tracking_state() == TS.TrackingState.OK
+    p = sysm.poses()[-1][:3, 3]
+    assert np.linalg.norm(p - gt[view][:3, 3]) < 0.05, p
+
+
+def test_relocalization_after_kidnap():
+    """tests/test_reloc.py's kidnap, for the port: relocalization and loop
+    detection on (the defaults), local mapping on. As in the JAX package,
+    the blank frames run relocalization attempts that find nothing, and
+    the replayed view is recovered by the reference-keyframe fallback."""
+    K, bf, frames, gt = make_stereo_sequence(n_frames=15, motion="forward",
+                                             width=320, height=240)
+    sysm = TS.System(TS.Settings(**settings_kw(K, bf)), TS.Sensor.STEREO, "cpu")
+    assert sysm.vocab is not None and sysm.vocab.n_words == 10 ** 5
+    _kidnap(sysm, frames, gt, view=6)
+    # every keyframe has a BoW row; the relocalized frame is logged OK
+    W = sysm.bow_n_words
+    assert all((sysm.kf_bow.ids[k] < W).any() for k in range(sysm.n_kfs))
+    assert not sysm.trajectory[-1].lost and sysm.trajectory[-3].lost
+    assert all(v == 0 for k, v in sysm.health().items() if k.startswith("loop"))
+    assert sysm.health()["verified_loops"] == 0
+
+
+def _save_reload(frames, save, load, tmp_path):
+    path = str(tmp_path / "map.npz")
+    save.save_map(path)
+    load.load_map(path)
+    assert load.get_tracking_state().name == "LOST"   # either package's enum
+    assert load.n_kfs == save.n_kfs >= 2
+    for j in range(2):
+        load.track_stereo(frames[5][0], frames[5][1], 5.0 + j * 0.1)
+    load.drain()
+    # with no tracker state every frame goes straight to relocalization
+    assert load._last_reloc_fid >= 0 and load.step is None
+    return load.poses()[-1][:3, 3]
+
+
+def test_map_save_load_relocalize(tmp_path):
+    """tests/test_reloc.py's checkpoint round trip, for the port."""
+    K, bf, frames, gt = make_stereo_sequence(n_frames=12, motion="forward",
+                                             width=320, height=240)
+    st = TS.Settings(**settings_kw(K, bf))
+    s1 = TS.System(st, TS.Sensor.STEREO, "cpu")
+    for i, (l, r) in enumerate(frames):
+        s1.track_stereo(l, r, i * 0.1)
+    s2 = TS.System(st, TS.Sensor.STEREO, "cpu")
+    pos = _save_reload(frames, s1, s2, tmp_path)
+    assert s2.state == TS.TrackingState.OK
+    assert np.linalg.norm(pos - gt[5][:3, 3]) < 0.05
+    torch.testing.assert_close(s2.kf_bow.ids, s1.kf_bow.ids, rtol=0, atol=0)
+    torch.testing.assert_close(s2.map.kfs.desc, s1.map.kfs.desc, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_map_cross_loads_between_packages(direction, tmp_path):
+    """A map saved by one package's System loads into the other's, which
+    then relocalizes into it (same `.npz` keys, uint32 descriptors)."""
+    K, bf, frames, gt = make_stereo_sequence(n_frames=12, motion="forward",
+                                             width=320, height=240)
+    kw = settings_kw(K, bf)
+    ts = TS.System(TS.Settings(**kw), TS.Sensor.STEREO, "cpu")
+    js = JS.System(JS.Settings(**kw), JS.Sensor.STEREO)
+    src, dst = (js, ts) if direction == "jax_to_port" else (ts, js)
+    for i, (l, r) in enumerate(frames):
+        src.track_stereo(l, r, i * 0.1)
+    pos = _save_reload(frames, src, dst, tmp_path)
+    assert dst.state.name == "OK"
+    assert np.linalg.norm(pos - gt[5][:3, 3]) < 0.05
+    z = np.load(str(tmp_path / "map.npz"))
+    assert z["kfs.desc"].dtype == np.uint32 and z["pts.desc"].dtype == np.uint32
+    np.testing.assert_array_equal(np.asarray(dst.kf_bow.ids),
+                                  np.asarray(src.kf_bow.ids))
+
+
+def test_load_map_dense_bow_backcompat(tmp_path):
+    """tests/test_reloc.py's case for the port: a checkpoint written before
+    the sparse BowTable holds a dense [K, W] `meta.kf_bow`; load_map
+    compacts it into the sparse rows a fresh save would hold."""
+    st = TS.Settings(fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=32.0,
+                     width=320, height=240, n_features=256, max_points=1024,
+                     max_keyframes=8, local_window=256)
+    s1 = TS.System(st, TS.Sensor.STEREO, "cpu")
+    W = s1.bow_n_words
+    ids, vals = s1.kf_bow
+    ids[0, :3] = torch.tensor([5, 17, W - 1], dtype=torch.int32)
+    vals[0, :3] = torch.tensor([0.5, 0.25, 0.25])
+    ids[1, :2] = torch.tensor([17, 42], dtype=torch.int32)
+    vals[1, :2] = torch.tensor([0.75, 0.25])
+    p = str(tmp_path / "map.npz")
+    s1.save_map(p)
+    z = dict(np.load(p))
+    dense = np.zeros((st.max_keyframes, W), np.float32)
+    for k in range(2):
+        live = vals[k].numpy() > 0
+        dense[k, ids[k].numpy()[live]] = vals[k].numpy()[live]
+    del z["meta.kf_bow_ids"], z["meta.kf_bow_vals"]
+    z["meta.kf_bow"] = dense
+    np.savez_compressed(p, **z)
+    s2 = TS.System(st, TS.Sensor.STEREO, "cpu")
+    s2.load_map(p)
+    for k in range(2):
+        got = TV.densify_bow_row(s2.kf_bow.ids, s2.kf_bow.vals, k, W).numpy()
+        np.testing.assert_allclose(got, dense[k], atol=1e-7)
+    torch.testing.assert_close(s2.kf_bow.ids, s1.kf_bow.ids, rtol=0, atol=0)
