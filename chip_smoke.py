@@ -59,7 +59,23 @@ Phases, each fatal on failure:
      levels, correction off): state OK, at least one verified loop with
      kf - cand >= 5, no correction, no correction-path guard. Prints the
      verified loops, the guarded verifications and the ms of
-     `compute_sim3_attempt`.
+     `compute_sim3_attempt`;
+  8. loop correction and global BA. Global BA at full width: at the end
+     of phase 5 (1241x376, 2000 features, 65,536-point table, keyframe
+     bucket 32, 64,000 edge rows) `loop_closer.run_global_ba(rounds=1)`
+     must fire no guard, revert nothing and keep ATE within 1.2x; prints
+     its synced ms, device activities and busy share. Offline correction:
+     drift is injected into a copy of phase 7's circuit map
+     (tests/test_loop.py's ramp over the post-loop keyframes and the
+     landmarks they own), the loop Sim3 re-measured and `_correct` run:
+     ATE more than doubles with the drift and the correction takes it
+     below half, no guard fires, the fuse merges landmarks, the loop edge
+     is kept; prints the three ATEs and the ms of `pose_graph_sim3`,
+     `loop_search_and_fuse`, `run_global_ba` and `_correct`. Live
+     correction: the circuit again with `enable_loop_correction=True`:
+     state OK, at least one correction, no correction-path guard, no BA
+     revert, a bounded rate of guarded BA iterations, and ATE against the
+     final keyframe poses no worse than max(1.25x, +0.01) of phase 7's.
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -326,14 +342,16 @@ def main() -> None:
 
     map_launches, map_frame_ms = mapping_phase(st, frames, gt, card)
     reloc_launches = reloc_phase(st, frames, gt, card, map_frame_ms)
-    loop_launches = loop_phase(card)
+    loop_launches, loop_sys, scene = loop_phase(card)
+    live_launches = correction_phase(loop_sys, scene, card)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
         "route": "cuda",
         "source": "splslam_tpu_torch/csrc/orb_describe.cu",
         "replaces": "splslam_tpu/ops/orb_pallas.py:172",
-        "launches": launches + map_launches + reloc_launches + loop_launches,
+        "launches": (launches + map_launches + reloc_launches + loop_launches
+                     + live_launches),
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -485,7 +503,50 @@ def mapping_phase(st, frames, gt, card):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: mapping step card vs CPU failed: {failed}")
+    global_ba_at_full_width(sysm, gt, card)
     return launches, float(np.median(times[10:]))
+
+
+def global_ba_at_full_width(sysm, gt, card):
+    """Phase 8, first part: global BA over phase 5's final map."""
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import ate_rmse
+
+    from splslam_tpu_torch.slam.loop_closing import _k_bucket
+
+    lc = sysm.loop_closer
+    kfs = sysm.map.kfs
+    K = _k_bucket(kfs.Tcw.shape[0], sysm.n_kfs)
+    ate0 = ate_rmse(sysm.poses_reconstructed(), gt)
+    version = sysm.map_version
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lc.run_global_ba(rounds=1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ate1 = ate_rmse(sysm.poses_reconstructed(), gt)
+    n_dev, dev_ms, _ = device_kernels(lambda: lc.run_global_ba(rounds=1))
+    ate2 = ate_rmse(sysm.poses_reconstructed(), gt)
+    print(f"global BA at full width: {sysm.n_kfs} keyframes (bucket {K}), "
+          f"{K * kfs.lm_idx.shape[1]} edge rows ({int(res.e_inlier.sum())} "
+          f"inliers), {sysm.map.pts.xyz.shape[0]}-point table; n_guarded "
+          f"{lc.n_guarded}, n_state_revert {int(res.n_state_revert)}, "
+          f"n_lm_singular {int(res.n_lm_singular)}; ATE {ate0:.5f} -> {ate1:.5f} "
+          f"-> {ate2:.5f} (second solve)")
+    print(f"run_global_ba(rounds=1): {ms:.2f} ms synced; a second solve under "
+          f"torch.profiler: {n_dev} device activities, {dev_ms:.3f} ms device "
+          f"time (busy {dev_ms / ms:.3f} of the synced ms) on {card}")
+    checks = {
+        "n_guarded == 0": lc.n_guarded == 0,
+        "n_state_revert == 0": int(res.n_state_revert) == 0,
+        "ATE no worse than 1.2x": ate1 <= 1.2 * ate0 and ate2 <= 1.2 * ate0,
+        "map_version bumped": sysm.map_version == version + 2,
+        "poses finite": bool(torch.isfinite(kfs.Tcw).all()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: global BA failed: {failed}")
 
 
 def _sync(device) -> None:
@@ -644,54 +705,30 @@ def reloc_phase(st, frames, gt, card, map_frame_ms, device="cuda", view=20):
     return launches
 
 
-def circuit(n_long=30, n_short=14, step=0.15, W=320, H=240, FX=200.0,
-            BASE=0.12):
-    """tests/test_loop.py's scene: a rectangular circuit over a textured
-    plane (right, down, left, up, then a re-traverse of the first leg), so
-    the start is re-entered through fresh scenery and the revisited
-    keyframes are not covisible with the old ones."""
-    import numpy as np
-
-    from splslam_tpu_torch.io.synthetic import PlaneScene, make_texture
-
-    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], np.float32)
-    scene = PlaneScene(make_texture(seed=0), z0=2.0, z1=5.0)
-    xy = []
-    x = y = 0.0
-    for n, dx, dy in ((n_long, step, 0), (n_short, 0, step), (n_long, -step, 0),
-                      (n_short, 0, -step), (10, step, 0)):
-        for _ in range(n):
-            xy.append((x, y))
-            x, y = x + dx, y + dy
-    poses, frames = [], []
-    for i, (px, py) in enumerate(xy):
-        Twc = np.eye(4)
-        Twc[0, 3] = px
-        Twc[1, 3] = py + 0.01 * np.sin(i * 0.4)
-        poses.append(Twc.copy())
-        Twc_r = Twc.copy()
-        Twc_r[0, 3] += BASE
-        frames.append((scene.render(K, Twc, H, W), scene.render(K, Twc_r, H, W)))
-    return K, FX * BASE, frames, np.stack(poses)
-
-
-def loop_phase(card, device="cuda"):
-    """Phase 7. Returns the kernel launches of the run."""
-    import torch
-
-    from splslam_tpu_torch.ops import orb_kernel as OK
-    from splslam_tpu_torch.slam import loop_closing as LC
-    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
-
-    K, bf, frames, _ = circuit()
-    st = Settings(
+def circuit_settings(Settings, K, bf, correction: bool):
+    """tests/test_loop.py's settings for the circuit."""
+    return Settings(
         fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
         cy=float(K[1, 2]), bf=float(bf), width=320, height=240,
         n_features=500, n_levels=4, th_depth=60.0, fps=5,
         max_points=16384, max_keyframes=64, local_window=1024,
-        enable_local_mapping=True, enable_loop_correction=False,
+        enable_local_mapping=True, enable_loop_correction=correction,
     )
-    sysm = System(st, Sensor.STEREO, device)
+
+
+def loop_phase(card, device="cuda"):
+    """Phase 7. Returns (kernel launches of the run, the System, the
+    circuit (K, bf, frames, gt))."""
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import make_loop_circuit
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.slam import loop_closing as LC
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    scene = make_loop_circuit()
+    K, bf, frames, _ = scene
+    sysm = System(circuit_settings(Settings, K, bf, False), Sensor.STEREO, device)
     sim3_ms: list[float] = []
     run_sim3 = LC.compute_sim3_attempt
     LC.compute_sim3_attempt = _timed(run_sim3, sim3_ms, device)
@@ -724,6 +761,117 @@ def loop_phase(card, device="cuda"):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: loop verification failed: {failed}")
+    return launches, sysm, scene
+
+
+def correction_phase(base, scene, card, device="cuda"):
+    """Phase 8, second and third part: the offline correction of injected
+    drift on phase 7's map, then the circuit with the correction live.
+    Returns the kernel launches of the live run."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.geometry import se3
+    from splslam_tpu_torch.io.synthetic import ate_rmse
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.optim import sim3 as S3
+    from splslam_tpu_torch.slam import loop_closing as LC
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    K, bf, frames, gt = scene
+    lc = base.loop_closer
+    kf, cand = lc.verified_loops[0]
+    n = base.n_kfs
+    ate0 = ate_rmse(base.poses_reconstructed(), gt)
+    base_mapping_guarded = base.health()["mapping_guarded"]
+
+    # ---- offline: drift into a copy of the map, then _correct ----
+    m = base.map.to("cpu")
+    base.kf_pose_host = {k: v.copy() for k, v in base.kf_pose_host.items()}
+    Tcw_d, xyz_d = m.kfs.Tcw.numpy(), m.pts.xyz.numpy()   # views of the copy
+    first_kf = m.pts.first_kf.numpy()
+    ramp0 = cand + 2
+    for k in range(ramp0, n):
+        a = (k - ramp0) / max(n - 1 - ramp0, 1)
+        xi = torch.tensor([0.25 * a, 0.1 * a, 0.0, 0.0, 0.0, 0.0])
+        W = se3.se3_exp(xi).numpy()                         # world-side drift
+        Tcw_d[k] = Tcw_d[k] @ np.linalg.inv(W)
+        own = first_kf == k
+        xyz_d[own] = xyz_d[own] @ W[:3, :3].T + W[:3, 3]
+        base.kf_pose_host[k] = Tcw_d[k].copy()
+    base.map = m.to(device)
+    ate_drift = ate_rmse(base.poses_reconstructed(), gt)
+    K3 = torch.from_numpy(K).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(kf)
+    *_, S12 = LC.compute_sim3_attempt(base.map, kf, cand, K3, True, generator=gen)
+    n_valid = int(base.map.pts.valid.sum())
+    ms = {"pose_graph_sim3": [], "loop_search_and_fuse": [], "run_global_ba": [],
+          "_correct": []}
+    run_pg, run_fuse = S3.pose_graph_sim3, LC.loop_search_and_fuse
+    S3.pose_graph_sim3 = _timed(run_pg, ms["pose_graph_sim3"], device)
+    LC.loop_search_and_fuse = _timed(run_fuse, ms["loop_search_and_fuse"], device)
+    lc.run_global_ba = _timed(lc.run_global_ba, ms["run_global_ba"], device)
+    try:
+        _timed(lc._correct, ms["_correct"], device)(kf, cand, S12)
+    finally:
+        S3.pose_graph_sim3, LC.loop_search_and_fuse = run_pg, run_fuse
+        del lc.run_global_ba
+    ate_corr = ate_rmse(base.poses_reconstructed(), gt)
+    n_valid_after = int(base.map.pts.valid.sum())
+    print(f"offline correction of loop ({kf}, {cand}), {n} keyframes: ATE "
+          f"{ate0:.5f} -> drifted {ate_drift:.5f} -> corrected {ate_corr:.5f}; "
+          f"valid landmarks {n_valid} -> {n_valid_after}; n_guarded "
+          f"{lc.n_guarded}, loop_edges {lc.loop_edges}")
+    print("correction stages, synced ms: "
+          + ", ".join(f"{k} {v[0]:.2f}" for k, v in ms.items()) + f" on {card}")
+    checks = {
+        "drift injected (ATE > 2x)": ate_drift > 2.0 * ate0,
+        "n_guarded == 0": lc.n_guarded == 0,
+        "corrected below half": ate_corr < 0.5 * ate_drift,
+        "the fuse merged landmarks": n_valid_after < n_valid,
+        "loop edge kept": lc.loop_edges == [(kf, cand)],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: offline correction failed: {failed}")
+
+    # ---- live: the circuit again with the correction on ----
+    sysm = System(circuit_settings(Settings, K, bf, True), Sensor.STEREO, device)
+    live_ms: list[float] = []
+    sysm.loop_closer._correct = _timed(sysm.loop_closer._correct, live_ms, device)
+    t0 = time.perf_counter()
+    OK.orb_describe.launches = 0
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.2)
+    state = sysm.get_tracking_state()
+    launches = OK.orb_describe.launches
+    wall = time.perf_counter() - t0
+    health = sysm.health()
+    ate_live = ate_rmse(sysm.poses_reconstructed(), gt)
+    steps = health["mapping_steps"]
+    print(f"live correction: {len(frames)} frames in {wall:.1f} s, state "
+          f"{state.name}, keyframes {sysm.n_kfs}, corrections "
+          f"{sysm.loop_closer.corrections} of loops {sysm.loop_closer.loop_edges}, "
+          f"ATE {ate_live:.5f} (phase 7's run {ate0:.5f}), map_version "
+          f"{sysm.map_version}, kernel launches {launches}, health {health} "
+          f"(phase 7's mapping_guarded {base_mapping_guarded})")
+    print(f"_correct, live: {_ms(live_ms)}, synced, on {card}")
+    checks = {
+        "state OK": state == TrackingState.OK,
+        "corrections >= 1": sysm.loop_closer.corrections >= 1,
+        "loop_guarded == 0": health["loop_guarded"] == 0,
+        "mapping_state_revert == 0": health["mapping_state_revert"] == 0,
+        "mapping_guarded <= max(3, steps // 25)":
+            health["mapping_guarded"] <= max(3, steps // 25),
+        "ATE in family with phase 7's":
+            ate_live < max(1.25 * ate0, ate0 + 0.01),
+        "one kernel launch per frame":
+            launches == len(frames) or torch.device(device).type != "cuda",
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: live correction failed: {failed}")
     return launches
 
 

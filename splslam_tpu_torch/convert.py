@@ -2,7 +2,7 @@
 
 The system has no weights: its "parameters" are its device state. These
 functions turn the reference's `FrameData` / `MapState` / `StepState` /
-`LocalWindow` / `Vocab` / `BowTable` — NamedTuples whose leaves are numpy arrays, as
+`LocalWindow` / `BAProblem` / `PoseGraphEdges` / `Vocab` / `BowTable` — NamedTuples whose leaves are numpy arrays, as
 `jax.device_get` returns them — into the port's tensors on a device, and
 back. uint32 descriptors cross as an int32 view of the same bits; the
 reference's `OrbFeatures.bits` cache is dropped on the way in.
@@ -21,6 +21,7 @@ from splslam_tpu_torch.bow.vocabulary import BowTable, Vocab
 from splslam_tpu_torch.ops.lines import LineFeatures
 from splslam_tpu_torch.ops.orb import OrbFeatures
 from splslam_tpu_torch.optim.ba import BAProblem, BAResult
+from splslam_tpu_torch.optim.sim3 import PoseGraphEdges
 from splslam_tpu_torch.slam.frame import FrameData
 from splslam_tpu_torch.slam.map import KeyFrames, MapLines, MapPoints, MapState
 from splslam_tpu_torch.slam.pipeline import StepState
@@ -120,6 +121,14 @@ def ba_problem_to_numpy(p: BAProblem) -> BAProblem:
 
 def ba_result_to_numpy(r: BAResult) -> BAResult:
     return _tree_to(r)
+
+
+def pose_graph_edges_from_numpy(e, device) -> PoseGraphEdges:
+    return _from(PoseGraphEdges, e, device)
+
+
+def pose_graph_edges_to_numpy(e: PoseGraphEdges) -> PoseGraphEdges:
+    return _tree_to(e)
 
 
 def vocab_from_numpy(v, device) -> Vocab:

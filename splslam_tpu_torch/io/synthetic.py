@@ -10,6 +10,8 @@ This is the port's own copy of `splslam_tpu/io/synthetic.py` (numpy and
 scipy only), kept line for line so that both packages run the same
 sequences; `tests/test_torch_synthetic.py` holds the two equal. The port
 imports nothing of the JAX package, this module included.
+`make_loop_circuit` is tests/test_loop.py's scene, for the loop-closing
+runs of the port's tests and smoke script.
 """
 
 from __future__ import annotations
@@ -334,6 +336,37 @@ def make_rgbd_sequence(
             depth = np.where(holes, 0.0, depth).astype(np.float32)
         frames.append((img, depth))
     return K, fx * baseline, frames, gt
+
+
+def make_loop_circuit(n_long: int = 30, n_short: int = 14, step: float = 0.15,
+                      width: int = 320, height: int = 240, fx: float = 200.0,
+                      baseline: float = 0.12):
+    """A rectangular circuit over a textured plane: right, down, left, up,
+    then a re-traverse of the start of the first leg. The start is
+    re-entered through fresh scenery, so the revisited keyframes are not
+    covisible with the old ones and the revisit is a loop to detect (on a
+    straight out-and-back they would be tracked as neighbours).
+    Returns (K [3,3], bf, [(left, right), ...], gt Twc [F,4,4])."""
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1]], np.float32)
+    scene = PlaneScene(make_texture(seed=0), z0=2.0, z1=5.0)
+    xy = []
+    x = y = 0.0
+    for n, dx, dy in ((n_long, step, 0), (n_short, 0, step), (n_long, -step, 0),
+                      (n_short, 0, -step), (10, step, 0)):
+        for _ in range(n):
+            xy.append((x, y))
+            x, y = x + dx, y + dy
+    poses, frames = [], []
+    for i, (px, py) in enumerate(xy):
+        Twc = np.eye(4)
+        Twc[0, 3] = px
+        Twc[1, 3] = py + 0.01 * np.sin(i * 0.4)
+        poses.append(Twc.copy())
+        Twc_r = Twc.copy()
+        Twc_r[0, 3] += baseline
+        frames.append((scene.render(K, Twc, height, width),
+                       scene.render(K, Twc_r, height, width)))
+    return K, fx * baseline, frames, np.stack(poses)
 
 
 def path_length(gt_Twc: np.ndarray) -> float:

@@ -1,5 +1,7 @@
-"""Local bundle adjustment: Schur-complement Levenberg-Marquardt (port of
-splslam_tpu/optim/ba.py, points only).
+"""Bundle adjustment (port of splslam_tpu/optim/ba.py, points only):
+`ba_solve`, the local window's Schur-complement Levenberg-Marquardt, and
+`ba_solve_pcg`, the whole map's matrix-free Schur Gauss-Newton with
+preconditioned conjugate gradients.
 
 The problem is an edge table (one row per observation: camera slot,
 landmark slot, measurement, information, validity). Mono edges are
@@ -139,6 +141,54 @@ def _bsum(a, b, dim):
     return torch.sum(a * b, dim=dim)
 
 
+class _OrderedCells(NamedTuple):
+    """A fixed summation order for rows that share a cell (see
+    `_ordered_cells`)."""
+
+    order: torch.Tensor   # [E] stable sort of the rows by cell
+    head: torch.Tensor    # [E] cell of a segment's first row, else n_cells
+    steps: tuple          # ((mask [E,1] bool, stride), ...) of the tree sum
+    n_cells: int
+
+
+def _ordered_cells(cell: torch.Tensor, n_cells: int, max_rows: int) -> _OrderedCells:
+    """Prepare `_sum_cells` for rows whose cell index is `cell` [E] (rows
+    with cell == n_cells are dropped). Rows are sorted by cell once
+    (stable, so a segment keeps the table's row order) and each segment is
+    summed by a pairwise tree over its ranks, which is the same sequence
+    of float additions on every run and on every device; `index_add_` on
+    CUDA adds colliding rows by atomics in launch order instead. The tree
+    has ceil(log2(max_rows)) levels: a cell may hold at most `max_rows`
+    rows."""
+    E = cell.shape[0]
+    order = torch.argsort(cell, stable=True)
+    sc = cell[order]
+    pos = torch.arange(E, device=cell.device)
+    rank = pos - torch.searchsorted(sc, sc)
+    steps = []
+    d = 1
+    while d < max_rows:
+        nxt = torch.clamp(pos + d, max=E - 1)
+        take = (rank % (2 * d) == 0) & (pos + d < E) & (sc[nxt] == sc)
+        steps.append((take[:, None], d))
+        d *= 2
+    head = torch.where(rank == 0, sc, n_cells)
+    return _OrderedCells(order, head, tuple(steps), n_cells)
+
+
+def _sum_cells(oc: _OrderedCells, rows: torch.Tensor) -> torch.Tensor:
+    """[n_cells, W] sums of `rows` [E, W] over the rows of each cell, in
+    the fixed order of `oc`."""
+    ps = rows[oc.order]
+    for take, d in oc.steps:
+        ps = ps + torch.where(take, torch.roll(ps, -d, 0), 0.0)
+    acc = torch.zeros((oc.n_cells + 1, rows.shape[1]), device=rows.device)
+    # Segment heads hold their cell's sum and are unique per cell; every
+    # other row lands in the spare last slot, which is dropped.
+    acc[oc.head] = ps
+    return acc[:oc.n_cells]
+
+
 def _edge_terms(Tcw_all, xyz_all, cam: Camera, p: BAProblem):
     """Residuals r [E,3], J_c [E,3,6], J_p [E,3,3], chi2 [E], depth-ok [E].
     Mono edges use rows 0..1 (row 2 zeroed through the stereo mask)."""
@@ -185,6 +235,25 @@ def _gates(p: BAProblem) -> torch.Tensor:
     return torch.where(p.e_ur >= 0, CHI2_STEREO, CHI2_MONO)
 
 
+def _finish(cam: Camera, p: BAProblem, gate, Tcw_all, xyz_all, ng, ngl) -> BAResult:
+    """The solvers' common end. No outcome may poison the map: a camera or
+    point that ends non-finite reverts to its input. Then the final chi2
+    gate."""
+    C = p.Tcw.shape[0]
+    cam_fin = torch.all(torch.isfinite(Tcw_all.reshape(C, -1)), dim=-1)
+    Tcw_all = torch.where(cam_fin[:, None, None], Tcw_all, p.Tcw)
+    pt_fin = torch.all(torch.isfinite(xyz_all), dim=-1)
+    xyz_all = torch.where(pt_fin[:, None], xyz_all, p.xyz)
+    nsr = torch.sum((~cam_fin).to(torch.int32)) \
+        + torch.sum((p.lm_ok & ~pt_fin).to(torch.int32))
+    _, _, _, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
+    inlier = p.e_ok & (chi2 <= gate) & z_ok
+    total = torch.sum(torch.where(inlier, chi2, 0.0))
+    return BAResult(Tcw_all, xyz_all, inlier, chi2, total,
+                    n_guarded=ng.to(torch.int32), n_state_revert=nsr.to(torch.int32),
+                    n_lm_singular=ngl.to(torch.int32))
+
+
 def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
              n_free: int | None = None) -> BAResult:
     """Solve the BA window. `n_free`: count of leading camera slots that
@@ -200,10 +269,18 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
     # free cameras are bands 0..Cf-1, everything else (fixed, frozen,
     # invalid) band Cf, which still feeds the landmark blocks. A camera
     # observes a landmark at most once, so a free band's cell holds one
-    # edge and the Schur cross blocks W are read off directly.
+    # edge and the Schur cross blocks W are read off directly. Band Cf
+    # holds many edges a landmark (and a keyframe row can hold one landmark
+    # twice after a fuse remap), so the cells are summed in a fixed order:
+    # the landmark blocks decide the LM accept test, which must not flip
+    # between runs. Edges that are not e_ok carry no weight and are left
+    # out.
     free_edge = (p.e_cam < Cf) & p.cam_free[p.e_cam.clamp(min=0).long()]
     ec = torch.where(free_edge, p.e_cam, Cf)
-    cl = (ec * L + p.e_lm).long()
+    n_cells = (Cf + 1) * L
+    cells = _ordered_cells(
+        torch.where(p.e_ok, (ec * L + p.e_lm).long(), n_cells), n_cells,
+        max_rows=4 * C)
 
     def assemble(Tcw_all, xyz_all, active):
         """One linearization: the normal-equation pieces, the robust cost
@@ -223,9 +300,7 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
         payload = torch.cat([Hcc_e.reshape(-1, 36)[:, _TRIU6], g_c,
                              Hpp_e.reshape(-1, 9)[:, _TRIU3], g_p,
                              Hcp_e.reshape(-1, 18)], dim=-1)     # [E,54]
-        acc = torch.zeros(((Cf + 1) * L, 54), device=dev)
-        acc.index_add_(0, cl, payload)
-        acc = acc.reshape(Cf + 1, L, 54)
+        acc = _sum_cells(cells, payload).reshape(Cf + 1, L, 54)
         acc_c = torch.sum(acc[:Cf, :, :27], dim=1)
         Hcc = acc_c[:, _FULL6].reshape(Cf, 6, 6)
         bc = acc_c[:, 21:]
@@ -330,17 +405,167 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
             ngl = ngl + torch.where(accept, n_bad_lm, 0)
         active = p.e_ok & (chi2 <= gate) & z_ok
 
-    # No outcome may poison the map: a camera or point that ends
-    # non-finite reverts to its input.
-    cam_fin = torch.all(torch.isfinite(Tcw_all.reshape(C, -1)), dim=-1)
-    Tcw_all = torch.where(cam_fin[:, None, None], Tcw_all, p.Tcw)
-    pt_fin = torch.all(torch.isfinite(xyz_all), dim=-1)
-    xyz_all = torch.where(pt_fin[:, None], xyz_all, p.xyz)
-    nsr = torch.sum((~cam_fin).to(torch.int32)) \
-        + torch.sum((p.lm_ok & ~pt_fin).to(torch.int32))
-    _, _, _, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
-    inlier = p.e_ok & (chi2 <= gate) & z_ok
-    total = torch.sum(torch.where(inlier, chi2, 0.0))
-    return BAResult(Tcw_all, xyz_all, inlier, chi2, total,
-                    n_guarded=ng.to(torch.int32), n_state_revert=nsr.to(torch.int32),
-                    n_lm_singular=ngl.to(torch.int32))
+    return _finish(cam, p, gate, Tcw_all, xyz_all, ng, ngl)
+
+
+# ----------------------------------------------------------------------
+# Global BA: matrix-free Schur + preconditioned conjugate gradients.
+#
+# The cell buffer of `ba_solve` is O(C*L) memory: fine for the local
+# window, impossible for the whole map. Here the reduced camera system
+# S = Hcc - W iHpp W^T is never formed: S v goes through the edge table
+# with two segment sums,
+#   (W^T v)_l = sum_{e: lm(e)=l}  G_e^T v_cam(e)     (G_e = Jc^T w Jp, 6x3)
+#   (W  u)_c = sum_{e: cam(e)=c} G_e  u_lm(e)
+# ----------------------------------------------------------------------
+def _segment(e: torch.Tensor, n: int):
+    """An edge index column as (scatter index, gather index) into n
+    slots. A negative index counts from the end and an index past the end
+    is dropped by the sums (it lands in a spare slot n) and clamped by the
+    gathers, as the reference's scatter and gather do."""
+    e = torch.where(e < 0, e + n, e).long()
+    inside = (e >= 0) & (e < n)
+    return torch.where(inside, e, n), e.clamp(0, n - 1)
+
+
+def ba_solve_pcg(cam: Camera, p: BAProblem, *, rounds: int = 2,
+                 gn_iters: int = 4, cg_iters: int = 24,
+                 damping: float = 1e-3) -> BAResult:
+    """Global bundle adjustment (reference Optimizer::BundleAdjustment,
+    src/Optimizer.cc:219-408) for problems too large for the dense-Schur
+    local solver. Every camera slot with cam_free is optimized; landmarks
+    always are. `rounds` x `gn_iters` damped Gauss-Newton steps (no accept
+    test; the two trust regions are the brake), each solved by `cg_iters`
+    Jacobi-preconditioned CG iterations of fixed count, with a chi2
+    re-classification of the edges after every round. Nothing is read
+    back to the host.
+
+    The segment sums are `index_add_` over the unsorted edge table: on
+    CUDA colliding rows are added in launch order, so two runs differ by
+    float noise."""
+    C = p.Tcw.shape[0]
+    L = p.xyz.shape[0]
+    dev = p.Tcw.device
+    gate = _gates(p)
+    free_f = p.cam_free.to(torch.float32)[:, None]
+    eye3 = torch.eye(3, device=dev)
+    eye6 = torch.eye(6, device=dev)
+    lm_put, lm_get = _segment(p.e_lm, L)
+    cam_put, cam_get = _segment(p.e_cam, C)
+    e_free = p.cam_free[cam_get].to(torch.float32)
+    p = p._replace(e_cam=cam_get, e_lm=lm_get)      # what the edge terms gather
+
+    def seg_lm(x):
+        return torch.zeros((L + 1, x.shape[1]), device=dev) \
+            .index_add_(0, lm_put, x)[:L]
+
+    def seg_cam(x):
+        return torch.zeros((C + 1, x.shape[1]), device=dev) \
+            .index_add_(0, cam_put, x)[:C]
+
+    def gn_step(Tcw_all, xyz_all, active):
+        r, J_c, J_p, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
+        w = _huber_weight(chi2, gate) * p.e_inv_sigma2 \
+            * (active & z_ok).to(torch.float32)
+        wf = w * e_free
+        Jcw = J_c * wf[:, None, None]
+        Jpw = J_p * w[:, None, None]
+        G = _bsum(Jcw[:, :, :, None], J_p[:, :, None, :], 1)        # [E,6,3]
+        Hcc_e = _bsum(Jcw[:, :, :, None], J_c[:, :, None, :], 1)
+        Hpp_e = _bsum(Jpw[:, :, :, None], J_p[:, :, None, :], 1)
+        g_c = _bsum(Jcw, r[:, :, None], 1)
+        g_p = _bsum(Jpw, r[:, :, None], 1)
+
+        cam_sums = seg_cam(torch.cat([Hcc_e.reshape(-1, 36), g_c], dim=-1))
+        Hcc, bc = cam_sums[:, :36].reshape(C, 6, 6), cam_sums[:, 36:]
+        lm_sums = seg_lm(torch.cat([Hpp_e.reshape(-1, 9), g_p], dim=-1))
+        Hpp, bp = lm_sums[:, :9].reshape(L, 3, 3), lm_sums[:, 9:]
+
+        hdiag = torch.diagonal(Hpp, dim1=1, dim2=2)
+        lm_active = p.lm_ok & (hdiag.sum(-1) > 0)
+        dHpp = eye3[None] * torch.clamp(hdiag, min=1e-8)[:, None, :]
+        Hpp_d = (Hpp + damping * dHpp + 1e-6 * eye3
+                 + torch.where(lm_active, 0.0, 1.0)[:, None, None] * eye3)
+        iHpp = _inv3(Hpp_d)
+        # A non-finite or astronomically large block inverse is frozen:
+        # one such block would poison every CG product.
+        lm_sing = ~torch.all(torch.abs(iHpp.reshape(L, -1)) < 1e12, dim=-1)
+        iHpp = torch.where(lm_sing[:, None, None], 0.0, iHpp)
+
+        cdiag = torch.diagonal(Hcc, dim1=1, dim2=2)
+        Hcc_d = Hcc + damping * eye6[None] * torch.clamp(cdiag, min=1.0)[:, None, :]
+
+        def W_u(u):                     # [L,3] -> [C,6]
+            return seg_cam(_bsum(G, u[lm_get][:, None, :], -1))
+
+        def Wt_v(v):                    # [C,6] -> [L,3]
+            return seg_lm(_bsum(G, v[cam_get][:, :, None], 1))
+
+        def S_matvec(v):
+            """S v on the free cameras; frozen rows pass through."""
+            Wv = W_u(_bsum(iHpp, Wt_v(v)[:, None, :], -1))
+            Hv = _bsum(Hcc_d, v[:, None, :], -1)
+            return (Hv - Wv) * free_f + v * (1.0 - free_f)
+
+        # rhs = -(bc - W iHpp bp)
+        rhs = -(bc - W_u(_bsum(iHpp, bp[:, None, :], -1))) * free_f
+        Minv = 1.0 / (torch.clamp(torch.diagonal(Hcc_d, dim1=1, dim2=2), min=1e-3)
+                      * free_f + (1.0 - free_f))
+        x = torch.zeros((C, 6), device=dev)
+        rvec = rhs - S_matvec(x)
+        z = Minv * rvec
+        pdir = z
+        rz = torch.sum(rvec * z)
+        for _ in range(cg_iters):
+            Ap = S_matvec(pdir)
+            alpha = rz / torch.clamp(torch.sum(pdir * Ap), min=1e-12)
+            x = x + alpha * pdir
+            rvec = rvec - alpha * Ap
+            z = Minv * rvec
+            rz_new = torch.sum(rvec * z)
+            pdir = z + rz_new / torch.clamp(rz, min=1e-12) * pdir
+            rz = rz_new
+        ok = torch.all(torch.isfinite(x))
+        dx_c = torch.where(ok, x, 0.0) * free_f
+
+        # Back-substitute landmarks.
+        dx_p = _bsum(iHpp, (-(bp + Wt_v(dx_c)))[:, None, :], -1)
+        dxp_fin = torch.all(torch.isfinite(dx_p), dim=-1)
+        n_bad = (~ok).to(torch.int32)
+        n_bad_lm = torch.sum(((lm_active & ~dxp_fin) | (p.lm_ok & lm_sing))
+                             .to(torch.int32))
+        dx_p = torch.where((lm_active & dxp_fin)[:, None], dx_p, 0.0)
+        # Trust regions, as the local solver's: a landmark step at most
+        # half the point's distance to the free cameras' centroid (plus
+        # 0.5); a camera step at most half the free cameras' extent in
+        # translation, 0.5 rad in rotation.
+        C_all = -_bsum(Tcw_all[:, :3, :3].transpose(1, 2),
+                       Tcw_all[:, :3, 3][:, None, :], -1)
+        centroid = torch.sum(C_all * free_f, dim=0) \
+            / torch.clamp(torch.sum(free_f), min=1.0)
+        max_step = 0.5 * (1.0 + torch.linalg.norm(xyz_all - centroid, dim=-1,
+                                                  keepdim=True))
+        stepn = torch.linalg.norm(dx_p, dim=-1, keepdim=True)
+        dx_p = dx_p * torch.clamp(max_step / torch.clamp(stepn, min=1e-9),
+                                  max=1.0)
+        ext = 0.5 * (1.0 + torch.max(torch.linalg.norm(
+            (C_all - centroid) * free_f, dim=-1)))
+        tn_c = torch.linalg.norm(dx_c[:, :3], dim=-1, keepdim=True)
+        rn_c = torch.linalg.norm(dx_c[:, 3:], dim=-1, keepdim=True)
+        dx_c = dx_c * torch.minimum(
+            torch.clamp(ext / torch.clamp(tn_c, min=1e-9), max=1.0),
+            torch.clamp(0.5 / torch.clamp(rn_c, min=1e-9), max=1.0))
+        return se3.se3_retract(Tcw_all, dx_c), xyz_all + dx_p, n_bad, n_bad_lm
+
+    Tcw_all, xyz_all = p.Tcw, p.xyz
+    active = p.e_ok
+    ng = torch.zeros((), dtype=torch.int32, device=dev)
+    ngl = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(rounds):
+        for _ in range(gn_iters):
+            Tcw_all, xyz_all, n_bad, n_bad_lm = gn_step(Tcw_all, xyz_all, active)
+            ng = ng + n_bad
+            ngl = ngl + n_bad_lm
+        _, _, _, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
+        active = p.e_ok & (chi2 <= gate) & z_ok
+    return _finish(cam, p, gate, Tcw_all, xyz_all, ng, ngl)

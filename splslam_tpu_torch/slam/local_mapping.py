@@ -43,6 +43,7 @@ class LocalMapper:
     def __init__(self, system):
         self.sys = system
         self._pending = None     # (_HostCopy of stats, kf, map_version)
+        self.big_change_idx = 0  # reference Map::mnBigChangeIdx
         self.n_steps = 0
         # BAResult guard counters summed over the run: transient camera-
         # step zeroings (rate-bounded), non-finite end-state reverts (must
@@ -71,6 +72,7 @@ class LocalMapper:
         fetch = _HostCopy(stats)
         self.flush()  # consume the PREVIOUS step's bookkeeping first
         self._pending = (fetch, kf_idx, sys.map_version)
+        self.big_change_idx += 1
         self.n_steps += 1
         # The step may have moved landmarks the live tracker state caches.
         if sys.step is not None:

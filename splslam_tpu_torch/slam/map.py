@@ -285,10 +285,12 @@ def landmark_membership(query: torch.Tensor, P: int) -> torch.Tensor:
     none)."""
     dev = query.device
     member = torch.zeros((P + 1,), dtype=torch.bool, device=dev)
-    member[torch.where(query > 0, query, P).long()] = True
+    # index_fill_ and a 1-d gather: writing a Python scalar through an
+    # index tensor, or indexing with a 0-dim tensor, waits for the device
+    member.index_fill_(0, torch.where(query > 0, query, P).long(), True)
     pos = torch.arange(query.shape[0], device=dev)
     last = torch.max(torch.where(query <= 0, pos, -1))
-    member[0] = (last >= 0) & (query[last.clamp(min=0)] == 0)
+    member[0] = (last >= 0) & (query[last.clamp(min=0)[None]][0] == 0)
     return member[:P]
 
 

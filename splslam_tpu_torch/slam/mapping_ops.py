@@ -110,7 +110,8 @@ def _topk_covisible(st: MapState, kf: int, k: int):
     index. Returns (ids [k] int32, -1 below the reference's weight 15,
     counts [k])."""
     counts = covisibility_counts(st, st.kfs.lm_idx[kf])
-    counts[kf] = 0
+    counts = torch.where(torch.arange(counts.shape[0], device=counts.device) == kf,
+                         0, counts)
     k = min(k, counts.shape[0])
     top_c, top_i = _stable_top(counts, k, largest=True)
     ids = torch.where(top_c >= 15, top_i.to(torch.int32), -1)
@@ -493,6 +494,18 @@ def cull_keyframes(st: MapState, kf: int):
     return st, culled_ids
 
 
+def _unique_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The distinct non-negative values of `ids` [F] in ascending order,
+    the first min(n, F) of them, padded with -1: a fixed shape
+    (`torch.unique`'s depends on the data and waits for the device)."""
+    s = torch.sort(ids).values
+    F = s.shape[0]
+    first = torch.cat([s[:1] >= 0, (s[1:] != s[:-1]) & (s[1:] >= 0)])
+    key = torch.where(first, torch.arange(F, dtype=torch.int32, device=ids.device), F)
+    sel = torch.sort(key).values[:min(n, F)]
+    return torch.where(sel < F, s[sel.clamp(0, F - 1).long()], -1)
+
+
 def build_ba_window(st: MapState, kf: int):
     """Free cameras: `kf` and its best covisible keyframes (1-ring,
     reference Optimizer.cc:2386-2405); fixed: the next best (2-ring,
@@ -507,13 +520,7 @@ def build_ba_window(st: MapState, kf: int):
     rows = st.kfs.lm_idx[free.clamp(min=0).long()]
     flat = torch.where((free >= 0)[:, None], rows, -1).reshape(-1)
     ok = (flat >= 0) & st.pts.valid[flat.clamp(min=0).long()]
-    s = torch.sort(torch.where(ok, flat, -1)).values
-    F = s.shape[0]
-    first = torch.cat([s[:1] >= 0, (s[1:] != s[:-1]) & (s[1:] >= 0)])
-    key = torch.where(first, torch.arange(F, dtype=torch.int32, device=dev), F)
-    sel = torch.sort(key).values[:min(L_WINDOW, F)]
-    lm_ids = torch.where(sel < F, s[sel.clamp(0, F - 1).long()], -1)
-    return cams, lm_ids
+    return cams, _unique_ids(torch.where(ok, flat, -1), L_WINDOW)
 
 
 def make_ba_problem(st: MapState, cams: torch.Tensor,

@@ -22,7 +22,12 @@ are compared: inlier mask exact, total chi2 within 1e-3, no state
 revert, and the gauge-aligned camera centres.
 `solve_dense` within a relative 1e-4 of the reference (the scaled
 system's sums run in another order), and exactly where its pivot floor
-decides."""
+decides.
+
+`ba_solve_pcg` (global BA) on tests/test_ba.py's 8-camera problem, mono
+and stereo, against the reference with the same tolerances, and against
+the port's own dense `ba_solve` (both reach the optimum). `_sum_cells`,
+the fixed-order sum of `ba_solve`'s cell buffer, against `index_add_`."""
 
 import jax
 import jax.numpy as jnp
@@ -193,3 +198,89 @@ def test_convert_round_trip_ba():
         if a is not None:
             np.testing.assert_array_equal(a, b, err_msg=f)
             assert a.dtype == np.asarray(b).dtype, f
+
+
+@pytest.fixture
+def one_thread():
+    """Many small ops: beside other test processes torch's OpenMP threads
+    spin at every barrier while the cores are taken; one thread has none."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_ba_solve_pcg_matches_jax(stereo, one_thread):
+    """tests/test_ba.py::test_pcg_gba_matches_dense's problem and schedule."""
+    cam, prob, Tg, Xg = JBA._make_problem(n_cams=8, n_pts=200, stereo=stereo)
+    p = jax.device_get(prob)
+    kw = dict(rounds=2, gn_iters=4, cg_iters=30)
+    jr = jax.device_get(JB.ba_solve_pcg(cam, prob, **kw))
+    tr = convert.ba_result_to_numpy(
+        TB.ba_solve_pcg(TCAM, convert.ba_problem_from_numpy(p, "cpu"), **kw))
+    # measured: poses 2.3e-6 / 1.4e-6, landmarks 6.3e-5 / 1.3e-5 (mono / stereo)
+    _assert_same(jr, tr)
+    for c in range(1, Tg.shape[0]):
+        assert np.linalg.norm(tr.Tcw[c][:3, 3] - Tg[c][:3, 3]) < 0.01
+    assert np.median(np.linalg.norm(tr.xyz - Xg, axis=-1)) < 0.02
+    assert tr.e_inlier.mean() > 0.95
+    np.testing.assert_array_equal(tr.Tcw[0], p.Tcw[0])      # the frozen camera
+
+
+def test_ba_solve_pcg_reaches_the_dense_optimum(one_thread):
+    """The matrix-free solver and the dense-Schur local solver agree where
+    both apply (stereo: no free scale to slide along)."""
+    cam, prob, Tg, Xg = JBA._make_problem(n_cams=8, n_pts=200, stereo=True)
+    tp = convert.ba_problem_from_numpy(jax.device_get(prob), "cpu")
+    pcg = TB.ba_solve_pcg(TCAM, tp, rounds=2, gn_iters=4, cg_iters=30)
+    dense = TB.ba_solve(TCAM, tp, rounds=2, iters=6, n_free=8)
+    # two schedules with different damping, each within 0.01 of the truth
+    # (tests/test_ba.py's gate): measured 3.5e-3 between them
+    np.testing.assert_allclose(pcg.Tcw.numpy(), dense.Tcw.numpy(), atol=1e-2)
+    d = (pcg.xyz - dense.xyz).norm(dim=-1)
+    # measured: median 6.6e-3, max 2.5e-2 (depth is the soft direction)
+    assert float(d.median()) < 2e-2 and float(d.max()) < 5e-2, (d.median(), d.max())
+    assert float((pcg.e_inlier == dense.e_inlier).float().mean()) > 0.99
+    assert int(pcg.n_guarded) == int(pcg.n_state_revert) == 0
+
+
+def test_ba_solve_pcg_drops_out_of_range_edges(one_thread):
+    """An edge whose landmark or camera index lies past the tables adds
+    nothing to the sums (the reference's `mode="drop"`)."""
+    cam, prob, _, _ = JBA._make_problem(n_cams=4, n_pts=40, stereo=True)
+    p = jax.device_get(prob)
+    far = p._replace(
+        e_cam=np.concatenate([p.e_cam, [99, 1]]).astype(np.int32),
+        e_lm=np.concatenate([p.e_lm, [3, 4000]]).astype(np.int32),
+        e_uv=np.concatenate([p.e_uv, np.zeros((2, 2), np.float32)]),
+        e_ur=np.concatenate([p.e_ur, [-1.0, -1.0]]).astype(np.float32),
+        e_inv_sigma2=np.concatenate([p.e_inv_sigma2, [1.0, 1.0]]).astype(np.float32),
+        e_ok=np.concatenate([p.e_ok, [False, False]]))
+    kw = dict(rounds=1, gn_iters=2, cg_iters=10)
+    a = TB.ba_solve_pcg(TCAM, convert.ba_problem_from_numpy(p, "cpu"), **kw)
+    b = TB.ba_solve_pcg(TCAM, convert.ba_problem_from_numpy(far, "cpu"), **kw)
+    np.testing.assert_array_equal(a.Tcw.numpy(), b.Tcw.numpy())
+    np.testing.assert_array_equal(a.xyz.numpy(), b.xyz.numpy())
+
+
+def test_sum_cells_is_an_ordered_index_add():
+    """Cells with one row, many rows and none; rows sent to the spare cell
+    are dropped; the result does not depend on how the rows are spread."""
+    g = torch.Generator().manual_seed(0)
+    E, n = 6000, 257
+    cell = torch.randint(0, n + 1, (E,), generator=g)
+    cell[:60] = 7                                 # a cell with 60+ rows
+    cell[cell == 11] = 12                         # an empty cell
+    rows = torch.randn((E, 5), generator=g)
+    oc = TB._ordered_cells(cell, n, max_rows=128)
+    got = TB._sum_cells(oc, rows)
+    ref = torch.zeros((n + 1, 5), dtype=torch.float64).index_add_(
+        0, cell, rows.double())[:n]
+    # float32 pairwise sums against a float64 sum: measured 1.9e-6
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+    assert not got[11].any()
+    # a permutation that keeps each cell's rows in order gives equal bits
+    perm = torch.argsort(cell % 7, stable=True)
+    again = TB._sum_cells(TB._ordered_cells(cell[perm], n, max_rows=128), rows[perm])
+    assert torch.equal(again, got)

@@ -3,8 +3,9 @@ against its plain PyTorch version (main-path shapes, edge-case slots,
 rejected inputs), and the port on the GPU against the
 port on the CPU (tracking alone, tracking with local mapping, one
 mapping step from identical maps, the BoW transform and keyframe rows,
-and a kidnap with relocalization). Every test skips on a host without a
-card.
+a kidnap with relocalization, and the loop correction: `pose_graph_sim3`,
+`loop_search_and_fuse`, `ba_solve_pcg` and `_correct` from one loop map
+built on the CPU). Every test skips on a host without a card.
 
 This file imports no JAX (a GPU host need not have it, and
 tests/conftest.py imports it), so on a GPU host run it as
@@ -17,8 +18,13 @@ exact; poses within 1e-3 of the CPU run (float32 sums in another order
 on the GPU). One mapping step: the integer tables after cull, triangulate
 and fuse exact; after local BA, keyframe poses within 1e-3, 99% of the
 window's landmarks within 1e-3 (a landmark seen by two keyframes slides
-along its ray) and inlier masks >= 99% equal (GPU atomics sum the normal
-equations in another order). BoW word ids and row ids exact (integer
+along its ray) and inlier masks >= 99% equal (the cell sums run in one
+fixed order on both devices; the products and reductions around them do
+not). Loop correction: the fuse's integer tables exact; pose graph within
+1e-4; global BA poses within 1e-3, 99% of the landmarks within 1e-3 and
+inlier masks >= 99% equal (its segment sums are float atomics on the
+card); `_correct` reads nothing back to the host apart from its listed
+copies (`loop_closing._host`). BoW word ids and row ids exact (integer
 popcounts). Kidnap: the same tracking states and lost frames, the same
 relocalization keyframe, poses within 1e-3 (with the RANSAC draws made
 equal: each device's own generator draws another stream, and the
@@ -29,7 +35,8 @@ import pytest
 import torch
 
 from splslam_tpu_torch.bow import vocabulary as TV
-from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence
+from splslam_tpu_torch.io.synthetic import (ate_rmse, make_loop_circuit,
+                                            make_stereo_sequence)
 from splslam_tpu_torch.ops import orb as TO
 from splslam_tpu_torch.ops import orb_kernel as OK
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
@@ -362,3 +369,186 @@ def test_reloc_and_sim3_attempts_do_not_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(out[1]) >= 50 and int(sim[0]) >= TLC.MIN_MATCHES
+
+
+# ---------------------------------------------------------------------
+# loop correction and global BA, card against CPU from one CPU-built map
+# ---------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def loop_map():
+    """The CPU port's run of the loop circuit (correction off): the System,
+    its verified loop and the measured Sim3."""
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    if not torch.cuda.is_available():     # before the 30 s CPU run
+        pytest.skip("needs a CUDA device")
+    K, bf, frames, gt = make_loop_circuit()
+    st = TS.Settings(
+        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+        cy=float(K[1, 2]), bf=float(bf), width=320, height=240,
+        n_features=500, n_levels=4, th_depth=60.0, fps=5, max_points=16384,
+        max_keyframes=64, local_window=1024)
+    sysm = TS.System(st, TS.Sensor.STEREO, "cpu")
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.2)
+    sysm.drain()
+    kf, cand = sysm.loop_closer.verified_loops[0]
+    gen = torch.Generator().manual_seed(kf)
+    *_, S12 = TLC.compute_sim3_attempt(sysm.map, kf, cand, torch.from_numpy(K), True,
+                                       generator=gen)
+    return sysm, kf, cand, S12, st
+
+
+def _stub(sysm, dev):
+    """The host state `_correct` reads, with a copy of the map on `dev`."""
+    import types
+
+    return types.SimpleNamespace(
+        map=sysm.map.to(dev), n_kfs=sysm.n_kfs, device=torch.device(dev),
+        sensor=sysm.sensor, cam=sysm.cam, scales=sysm.scales.to(dev),
+        settings=sysm.settings, mapper=types.SimpleNamespace(big_change_idx=0),
+        kf_pose_host={}, map_version=0, step=None)
+
+
+def test_pose_graph_sim3_gpu_matches_cpu(cuda, loop_map):
+    from splslam_tpu_torch.optim import sim3 as TS3
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    sysm, kf, cand, S12, _ = loop_map
+    n = sysm.n_kfs
+    edges = TLC._build_pose_graph_edges(sysm.map, n, kf, cand, S12)
+    K = TLC._k_bucket(sysm.map.kfs.Tcw.shape[0], n)
+    out = []
+    for dev in ("cpu", cuda):
+        Tcw = sysm.map.kfs.Tcw[:K].to(dev)
+        free = (torch.arange(K, device=dev) < n) & (torch.arange(K, device=dev) != 0)
+        out.append(TS3.pose_graph_sim3(
+            torch.ones((K,), device=dev), Tcw[:, :3, :3], Tcw[:, :3, 3], free,
+            TS3.PoseGraphEdges(*[x.to(dev) for x in edges]), iters=15,
+            fix_scale=True))
+    (sc, Rc, tc, gc), (sg, Rg, tg, gg) = out
+    assert int(gc) == int(gg) == 0
+    err = max(float((Rg.cpu() - Rc).abs().max()), float((tg.cpu() - tc).abs().max()))
+    print(f"pose_graph_sim3 card vs CPU: {edges.i.shape[0]} edges, K {K}, "
+          f"max abs err {err:.3e}")
+    assert err <= 1e-4
+    assert torch.equal(sg.cpu(), sc)
+
+
+def _loop_inputs(sysm, kf, cand, dev):
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    m = sysm.map.to(dev)
+    group = lambda k: torch.cat([torch.full((1,), k, dtype=torch.int32, device=dev),
+                                 TMO._topk_covisible(m, k, 7)[0]])
+    cur, loop = group(kf), group(cand)
+    rows = m.kfs.lm_idx[loop.clamp(min=0).long()]
+    ids = torch.unique(torch.where((loop >= 0)[:, None], rows, -1))
+    ids = ids[ids >= 0][:TLC.MAX_LOOP_LMS]
+    pad = torch.full((TLC.MAX_LOOP_LMS - ids.shape[0],), -1, dtype=torch.int32,
+                     device=dev)
+    return m, cur, torch.cat([ids.to(torch.int32), pad])
+
+
+def test_loop_search_and_fuse_gpu_matches_cpu(cuda, loop_map):
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    sysm, kf, cand, _, st = loop_map
+    out = []
+    for dev in ("cpu", cuda):
+        m, cur, loop_lms = _loop_inputs(sysm, kf, cand, dev)
+        n0 = int(m.pts.valid.sum())
+        m = TLC.loop_search_and_fuse(m, cur, loop_lms, sysm.cam, sysm.scales.to(dev),
+                                     st.scale_factor, st.n_levels)
+        out.append((m, n0, loop_lms.cpu()))
+    (mc, n0, lc), (mg, _, lg) = out
+    assert torch.equal(lg, lc)
+    for name, a, b in (("lm_idx", mg.kfs.lm_idx, mc.kfs.lm_idx),
+                       ("valid", mg.pts.valid, mc.pts.valid),
+                       ("n_obs", mg.pts.n_obs, mc.pts.n_obs)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0, msg=name)
+    assert int(mc.pts.valid.sum()) < n0
+
+
+def test_ba_solve_pcg_gpu_matches_cpu(cuda, loop_map):
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    sysm = loop_map[0]
+    out = []
+    for dev in ("cpu", cuda):
+        stub = _stub(sysm, dev)
+        lc = TLC.LoopCloser(stub)
+        res = lc.run_global_ba(rounds=1)
+        out.append((stub, lc, res))
+    (sc, lcc, rc), (sg, lcg, rg) = out
+    assert lcc.n_guarded == lcg.n_guarded == 0
+    assert int(rc.n_state_revert) == int(rg.n_state_revert) == 0
+    pose_err = float((rg.Tcw.cpu() - rc.Tcw).abs().max())
+    ok = sc.map.pts.valid
+    d = (rg.xyz.cpu() - rc.xyz).norm(dim=-1)[ok]
+    e_ok = rc.e_inlier | rg.e_inlier.cpu()
+    agree = float((rg.e_inlier.cpu() == rc.e_inlier)[e_ok].float().mean())
+    print(f"ba_solve_pcg card vs CPU: {int(ok.sum())} landmarks, pose max abs err "
+          f"{pose_err:.3e}, landmark err q99 {float(torch.quantile(d, 0.99)):.3e} "
+          f"max {float(d.max()):.3e}, inlier agreement {agree:.5f}")
+    assert pose_err <= 1e-3
+    assert float(torch.quantile(d, 0.99)) <= 1e-3
+    assert agree >= 0.99
+    for k in range(sysm.n_kfs):
+        np.testing.assert_allclose(sg.kf_pose_host[k], sc.kf_pose_host[k], atol=1e-3)
+
+
+def test_correct_does_not_sync_outside_its_host_copies(cuda, loop_map, monkeypatch):
+    """`_correct` on the card under `set_sync_debug_mode("warn")`, every
+    warning collected and none allowed: only the copies made through
+    `loop_closing._host` (the essential graph's inputs, the solver
+    counters, the pose log) may wait for the device. The result follows
+    the CPU's."""
+    import warnings
+
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    sysm, kf, cand, S12, _ = loop_map
+    cpu = _stub(sysm, "cpu")
+    TLC.LoopCloser(cpu)._correct(kf, cand, S12)
+    gpu = _stub(sysm, cuda)
+    S12g = tuple(x.to(cuda) for x in S12)
+    host, n_host = TLC._host, []
+
+    def listed(t):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            n_host.append(t.numel())
+            return host(t)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(TLC, "_host", listed)
+    lc = TLC.LoopCloser(gpu)
+    lc._correct(kf, cand, S12g)            # warm-up: lazy initialisations
+    gpu = _stub(sysm, cuda)
+    lc = TLC.LoopCloser(gpu)
+    n_host.clear()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            lc._correct(kf, cand, S12g)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    assert not syncs, syncs
+    assert len(n_host) == 5                # poses, two count matrices, 2 counters
+    assert lc.n_guarded == 0 and lc.loop_edges == [(kf, cand)]
+    assert gpu.map_version == cpu.map_version == 2
+    n = sysm.n_kfs
+    pose_err = float((gpu.map.kfs.Tcw[:n].cpu() - cpu.map.kfs.Tcw[:n]).abs().max())
+    diff = int((gpu.map.kfs.lm_idx.cpu() != cpu.map.kfs.lm_idx).sum())
+    print(f"_correct card vs CPU: pose max abs err {pose_err:.3e}, lm_idx entries "
+          f"differing {diff}, host copies {n_host}")
+    assert pose_err <= 1e-3
+    assert int(gpu.map.pts.valid.sum()) < int(sysm.map.pts.valid.sum())
+    assert diff <= 0.001 * gpu.map.kfs.lm_idx.numel()

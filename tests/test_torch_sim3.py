@@ -8,7 +8,10 @@ and inlier counts equal; Jacobians of the residuals from
 `torch.func.jacfwd` within 1e-4 of `jax.jacfwd` (and finite at xi = 0,
 where every small-angle and small-scale branch of sim3_exp is taken).
 The behaviours of tests/test_sim3.py's Horn, outlier and fixed-scale
-tests hold for the port with its own draws."""
+tests hold for the port with its own draws. `pose_graph_sim3` on
+tests/test_sim3.py's drifted 12-keyframe circle, with a weight-0 edge, a
+second anchored slot and a loop measurement of scale 1.05: (s, R, t)
+within 2e-6 of the JAX package's after 15 iterations."""
 
 import jax
 import jax.numpy as jnp
@@ -229,3 +232,109 @@ def test_sim3_fix_scale():
     _, _, _, X1, X2, *_ = _make_sim3_problem(s_gt=1.0, outliers=0)
     s, _, _ = TS3.sim3_horn(*_t(X1, X2), fix_scale=True)
     assert float(s) == 1.0
+
+
+@pytest.fixture
+def one_thread():
+    """Many small ops: beside other test processes torch's OpenMP threads
+    spin at every barrier while the cores are taken; one thread has none."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _drifted_circle(Kn=12):
+    """tests/test_sim3.py:84-120: poses on a circle, noisy odometry, the
+    chain's measured edges and a loop edge with the true relative pose."""
+    gt = []
+    for k in range(Kn):
+        a = 2 * np.pi * k / Kn
+        Twc = np.eye(4, dtype=np.float32)
+        Twc[:3, :3] = np.array(
+            [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        Twc[:3, 3] = [np.sin(a), 0.0, 1.0 - np.cos(a)]
+        gt.append(np.linalg.inv(Twc))
+    gt = np.array(gt, np.float32)
+    rng = np.random.default_rng(0)
+    est = [gt[0]]
+    for k in range(1, Kn):
+        rel = gt[k] @ np.linalg.inv(gt[k - 1])
+        xi = rng.normal(0, 0.01, 6).astype(np.float32)
+        est.append(np.asarray(JSE3.se3_exp(jnp.asarray(xi))) @ rel @ est[-1])
+    est = np.array(est, np.float32)
+    ei, ej, Rs, ts = [], [], [], []
+    for k in range(1, Kn):
+        rel = est[k] @ np.linalg.inv(est[k - 1])
+        ei.append(k), ej.append(k - 1), Rs.append(rel[:3, :3]), ts.append(rel[:3, 3])
+    loop = gt[-1] @ np.linalg.inv(gt[0])
+    ei.append(Kn - 1), ej.append(0), Rs.append(loop[:3, :3]), ts.append(loop[:3, 3])
+    return gt, est, ei, ej, Rs, ts
+
+
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_pose_graph_sim3_matches_jax(fix_scale, one_thread):
+    gt, est, ei, ej, Rs, ts = _drifted_circle()
+    Kn = gt.shape[0]
+    E = len(ei)
+    ss, w = [1.0] * E, [1.0] * E
+    ss[-1] = 1.05                       # the loop measures a scale
+    # a masked edge that would otherwise pull keyframe 5 onto keyframe 2
+    ei.append(5), ej.append(2), Rs.append(np.eye(3)), ts.append(np.zeros(3))
+    ss.append(1.0), w.append(0.0)
+    free = np.array([False] + [True] * (Kn - 1))
+    free[7] = False                     # a second anchored slot
+    e_np = JS3.PoseGraphEdges(
+        i=np.asarray(ei, np.int32), j=np.asarray(ej, np.int32),
+        s=np.asarray(ss, np.float32), R=np.asarray(Rs, np.float32),
+        t=np.asarray(ts, np.float32), weight=np.asarray(w, np.float32))
+    R0, t0 = est[:, :3, :3].copy(), est[:, :3, 3].copy()
+    s, R, t, ng = JS3.pose_graph_sim3(
+        jnp.ones((Kn,)), jnp.asarray(R0), jnp.asarray(t0), jnp.asarray(free),
+        jax.tree.map(jnp.asarray, e_np), iters=15, fix_scale=fix_scale)
+    from splslam_tpu_torch import convert
+    ts_, tR, tt, tng = TS3.pose_graph_sim3(
+        torch.ones(Kn), *_t(R0, t0, free),
+        convert.pose_graph_edges_from_numpy(e_np, "cpu"), iters=15,
+        fix_scale=fix_scale)
+    assert int(tng) == int(ng) == 0
+    assert ts_.dtype == tR.dtype == tt.dtype == torch.float32
+    # measured: s 1.2e-7, R 1.2e-7, t 2.4e-7
+    _close(ts_, s, 2e-6), _close(tR, R, 2e-6), _close(tt, t, 2e-6)
+    # anchors do not move; the drift at the loop's end falls
+    for k in (0, 7):
+        np.testing.assert_array_equal(tt[k].numpy(), t0[k])
+        np.testing.assert_array_equal(tR[k].numpy(), R0[k])
+    drift0 = np.linalg.norm(est[-1][:3, 3] - gt[-1][:3, 3])
+    drift1 = np.linalg.norm(tt[-1].numpy() - gt[-1][:3, 3])
+    assert drift1 < 0.6 * drift0, (drift0, drift1)
+    if fix_scale:
+        assert torch.equal(ts_, torch.ones(Kn))
+    else:
+        assert float(ts_[-1]) > 1.01     # the measured scale spreads in
+
+
+def test_pose_graph_sim3_counts_a_guarded_solve(one_thread):
+    """A non-finite measurement makes every solve non-finite: each
+    iteration is counted and the poses come back unchanged."""
+    gt, est, ei, ej, Rs, ts = _drifted_circle()
+    Kn = gt.shape[0]
+    E = len(ei)
+    Rs = np.asarray(Rs, np.float32)
+    Rs[3] = np.nan
+    e_np = JS3.PoseGraphEdges(
+        i=np.asarray(ei, np.int32), j=np.asarray(ej, np.int32),
+        s=np.ones(E, np.float32), R=Rs, t=np.asarray(ts, np.float32),
+        weight=np.ones(E, np.float32))
+    free = np.array([False] + [True] * (Kn - 1))
+    R0, t0 = est[:, :3, :3].copy(), est[:, :3, 3].copy()
+    *_, ng = JS3.pose_graph_sim3(
+        jnp.ones((Kn,)), jnp.asarray(R0), jnp.asarray(t0), jnp.asarray(free),
+        jax.tree.map(jnp.asarray, e_np), iters=3)
+    from splslam_tpu_torch import convert
+    s, R, t, tng = TS3.pose_graph_sim3(
+        torch.ones(Kn), *_t(R0, t0, free),
+        convert.pose_graph_edges_from_numpy(e_np, "cpu"), iters=3)
+    assert int(tng) == int(ng) == 3
+    np.testing.assert_array_equal(t.numpy(), t0)
+    np.testing.assert_array_equal(R.numpy(), R0)

@@ -56,3 +56,12 @@ def test_path_length_and_ate_equal_jax_package():
         for scale in (False, True):
             assert (TS.ate_rmse(est, gt, align, scale)
                     == JS.ate_rmse(est, gt, align, scale))
+
+
+def test_loop_circuit_equals_the_jax_tests_scene():
+    """`make_loop_circuit` is tests/test_loop.py's `_circuit`."""
+    from tests.test_loop import _circuit
+
+    kw = dict(n_long=4, n_short=2)
+    assert_sequences_equal(_circuit(**kw), TS.make_loop_circuit(**kw))
+    assert len(TS.make_loop_circuit(**kw)[2]) == 2 * (4 + 2) + 10

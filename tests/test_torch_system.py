@@ -16,7 +16,8 @@ BA moves the keyframe poses the frames are tracked against); no
 non-finite BA revert (`mapping_state_revert == 0`) on either side;
 equal trajectory export line counts; after a kidnap, the replayed view
 relocalizes within 0.05 m of ground truth (the JAX gate). Slice limits
-raise NotImplementedError."""
+raise NotImplementedError; loop correction is no longer one of them
+(tests/test_torch_correction.py drives it)."""
 
 import numpy as np
 import pytest
@@ -205,7 +206,7 @@ def test_reset(runs):
 
 @pytest.mark.parametrize("change", [
     dict(sensor=TS.Sensor.MONOCULAR), dict(sensor=TS.Sensor.RGBD),
-    dict(using_line=True), dict(enable_loop_correction=True),
+    dict(using_line=True), dict(using_line=True, enable_loop_correction=True),
     dict(vocabulary_path="ORBvoc.txt"),
 ])
 def test_later_slices_raise(change):
@@ -213,6 +214,18 @@ def test_later_slices_raise(change):
     sensor = change.pop("sensor", TS.Sensor.STEREO)
     with pytest.raises(NotImplementedError):
         TS.System(TS.Settings(**change), sensor, "cpu")
+
+
+def test_loop_correction_is_a_setting_not_a_later_slice():
+    """`enable_loop_correction=True` constructs (stereo, points); the
+    default stays the reference's kill-switch."""
+    assert TS.Settings().enable_loop_correction is False
+    sysm = TS.System(TS.Settings(enable_loop_correction=True,
+                                 enable_relocalization=False),
+                     TS.Sensor.STEREO, "cpu")
+    assert sysm.settings.enable_loop_correction and not sysm.map_changed()
+    h = sysm.health()
+    assert h["loop_corrections"] == 0 and h["loop_guarded"] == 0
 
 
 def test_frame_with_lines_raises():
