@@ -75,7 +75,26 @@ Phases, each fatal on failure:
      correction: the circuit again with `enable_loop_correction=True`:
      state OK, at least one correction, no correction-path guard, no BA
      revert, a bounded rate of guarded BA iterations, and ATE against the
-     final keyframe poses no worse than max(1.25x, +0.01) of phase 7's.
+     final keyframe poses no worse than max(1.25x, +0.01) of phase 7's;
+  9. the monocular point+line path at bench_mono.py's configuration
+     (640x480, fx 520, the grid texture, oscillating lateral motion,
+     seed 4; 1000 features, 8 levels, 128 line slots, fps 30,
+     min_kf_gap 20, 16,384 points, 128 keyframes, 2048-landmark window;
+     local mapping, relocalization and loop closing off), cut from 120
+     frames to 72 to keep the phase near 150 s of the card's time,
+     `track_mono` one frame at a time: state OK with no frame lost, one
+     B = 1 kernel launch per frame. Prints the init frame and model, the
+     map points and lines, the median line inliers per frame, the
+     Sim3-aligned ATE, ms/frame (median and p90 from init + 10), the
+     device kernels of one `build_frame_mono` and the synced ms of its
+     `extract_lines`. Holds one B = 1 `orb_describe` launch on a frame of
+     the sequence against its plain version (timed as in phase 3), and
+     `extract_lines` on the card against the CPU (validity and octaves
+     equal). Then the same sequence points only (bench_mono.py's
+     ablation: its state and lost frames), and the low-texture two-view
+     init trials of bench_components.py (10 seeds, with and without
+     lines), whose success counts print beside the JAX package's record
+     (BENCH_HEADLINES.json: 10/10 with lines, 0/10 without).
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -344,6 +363,7 @@ def main() -> None:
     reloc_launches = reloc_phase(st, frames, gt, card, map_frame_ms)
     loop_launches, loop_sys, scene = loop_phase(card)
     live_launches = correction_phase(loop_sys, scene, card)
+    mono_launches = mono_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
@@ -351,7 +371,7 @@ def main() -> None:
         "source": "splslam_tpu_torch/csrc/orb_describe.cu",
         "replaces": "splslam_tpu/ops/orb_pallas.py:172",
         "launches": (launches + map_launches + reloc_launches + loop_launches
-                     + live_launches),
+                     + live_launches + mono_launches),
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -872,6 +892,225 @@ def correction_phase(base, scene, card, device="cuda"):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: live correction failed: {failed}")
+    return launches
+
+
+MONO_W, MONO_H = 640, 480
+MONO_FRAMES = 72   # bench_mono.py runs 120
+
+
+def mono_settings(Settings, K, using_line: bool):
+    """bench_mono.py's configuration (bench_mono.py:55-92), one frame at a
+    time (no batching)."""
+    return Settings(
+        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+        cy=float(K[1, 2]), bf=0.0, width=MONO_W, height=MONO_H,
+        n_features=1000, n_levels=8, fps=30.0, max_points=16384,
+        max_keyframes=128, local_window=2048, using_line=using_line,
+        line_features=128, min_kf_gap=20, enable_local_mapping=False,
+        enable_relocalization=False, enable_loop_closing=False,
+    )
+
+
+def _mono_run(sysm, frames, device):
+    """Track `frames` with `track_mono`, one synced frame at a time.
+    Returns (per-frame ms, per-frame line inliers of the consumed stats)."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.slam import pipeline
+
+    ln_in = []
+    consume = sysm._process_one
+
+    def _process_one():
+        stats = sysm._pending[0][0]
+        consume()
+        ln_in.append(int(stats[pipeline.S_N_LN_IN]))
+
+    sysm._process_one = _process_one
+    times = []
+    for i, (l, _) in enumerate(frames):
+        _sync(device)
+        t0 = time.perf_counter()
+        sysm.track_mono(l, i / 30.0)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    sysm.drain()
+    del sysm._process_one
+    return np.asarray(times), ln_in
+
+
+def _low_texture_trials(card, device, n_trials: int = 10):
+    """bench_components.py's mono init trials (bench_components.py:45-118):
+    a low-contrast texture crossed by dark grid strokes, 14 frames of
+    lateral motion; success = state OK within the 14 frames."""
+    import numpy as np
+
+    from splslam_tpu_torch.io.synthetic import PlaneScene, make_texture
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    W, H = 320, 240
+    K = np.array([[200.0, 0, W / 2], [0, 200.0, H / 2], [0, 0, 1]], np.float32)
+
+    def texture(seed):
+        t = make_texture(seed=seed, size=2048)
+        t = 128.0 + (t - 128.0) * 0.12
+        for i in range(0, 2048, 96):
+            t[i:i + 7, :] = 30.0
+            t[:, i:i + 7] = 30.0
+        return t.astype(np.float32)
+
+    out = {}
+    t0 = time.perf_counter()
+    for using_line in (True, False):
+        ok, pts, lns = 0, 0, 0
+        for seed in range(100, 100 + n_trials):
+            scene = PlaneScene(texture(seed), z0=3.0, z1=None, px_per_unit=60.0)
+            phase = np.random.default_rng(seed).uniform(0, 3.0)
+            st = Settings(
+                fx=200.0, fy=200.0, cx=W / 2, cy=H / 2, bf=0.0, width=W, height=H,
+                n_features=500, n_levels=4, fps=10, max_points=8192,
+                max_keyframes=32, local_window=512, enable_local_mapping=False,
+                enable_relocalization=False, enable_loop_closing=False,
+                using_line=using_line, line_features=64)
+            sysm = System(st, Sensor.MONOCULAR, device)
+            for i in range(14):
+                Twc = np.eye(4)
+                Twc[0, 3] = 0.06 * i
+                Twc[1, 3] = 0.01 * np.sin(i + phase)
+                sysm.track_mono(scene.render(K, Twc, H, W), i * 0.1)
+                if sysm.get_tracking_state() == TrackingState.OK:
+                    ok += 1
+                    pts += int(sysm.map.pts.valid.sum())
+                    lns += int(sysm.map.lns.valid.sum())
+                    break
+        out["point_line" if using_line else "points_only"] = (ok, pts / max(ok, 1),
+                                                              lns / max(ok, 1))
+    wall = time.perf_counter() - t0
+    (a, ap, al), (b, bp, bl) = out["point_line"], out["points_only"]
+    print(f"low-texture mono init ({n_trials} seeds, {wall:.1f} s): point+line "
+          f"{a}/{n_trials} (mean {ap:.1f} points, {al:.1f} lines), points only "
+          f"{b}/{n_trials} (mean {bp:.1f} points); the JAX package's record "
+          f"(BENCH_HEADLINES.json mono_init_success_low_texture): 10/10 and 0/10")
+    return a, b
+
+
+def mono_phase(card, device="cuda"):
+    """Phase 9: the monocular point+line path. Returns the kernel launches
+    of its main run."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence
+    from splslam_tpu_torch.ops import lines as LN
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.ops.orb import detect
+    from splslam_tpu_torch.slam import frame as FR
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    t_phase = time.perf_counter()
+    K, _, frames, gt = make_stereo_sequence(
+        n_frames=MONO_FRAMES, width=MONO_W, height=MONO_H, fx=520.0, motion="oscillate",
+        seed=4, osc_amp=0.5, texture="grid")
+    sysm = System(mono_settings(Settings, K, True), Sensor.MONOCULAR, device)
+    OK.orb_describe.launches = 0
+    times, ln_in = _mono_run(sysm, frames, device)
+    launches = OK.orb_describe.launches
+    state = sysm.get_tracking_state()
+    n_lost = sum(e.lost for e in sysm.trajectory)
+    i_init = int(round(sysm.trajectory[1].ts * 30.0)) if len(sysm.trajectory) > 1 else -1
+    idx = [int(round(e.ts * 30.0)) for e in sysm.trajectory if not e.lost]
+    est = sysm.poses()
+    ate = ate_rmse(est, gt[idx], align_scale=True)
+    tail = times[i_init + 10:] if i_init >= 0 else times
+    n_pts, n_lns = int(sysm.map.pts.valid.sum()), int(sysm.map.lns.valid.sum())
+    print(f"mono+lines: {len(frames)} frames of {MONO_W}x{MONO_H}, init at frame "
+          f"{i_init} (reference frame {int(round(sysm.trajectory[0].ts * 30.0))}), "
+          f"init_used_h {sysm.init_used_h}, state {state.name}, lost {n_lost}, "
+          f"keyframes {sysm.n_kfs}, map points {n_pts}, map lines {n_lns}, median "
+          f"line inliers/frame {float(np.median(ln_in)) if ln_in else 0.0}, "
+          f"Sim3-aligned ATE {ate:.5f}, kernel launches {launches}")
+    print(f"track_mono (lines): median {np.median(tail):.2f} ms/frame, p90 "
+          f"{np.percentile(tail, 90):.2f} over frames {i_init + 10}-{len(frames) - 1}, "
+          f"synced, on {card} (the reference C++ on a CPU, BASELINE.md: 41.54 "
+          f"ms/frame TUM mono+line, context only)")
+
+    # one build_frame_mono: its device kernels, and extract_lines inside it
+    img = torch.from_numpy(frames[60][0].astype(np.float32)).to(device)
+    lines_ms: list[float] = []
+    run_lines = FR.extract_lines
+    FR.extract_lines = _timed(run_lines, lines_ms, device)
+    try:
+        FR.build_frame_mono(img, sysm.cam, sysm.spec, with_lines=True,
+                            line_capacity=128)
+        for _ in range(5):
+            FR.build_frame_mono(img, sysm.cam, sysm.spec, with_lines=True,
+                                line_capacity=128)
+    finally:
+        FR.extract_lines = run_lines
+    n_dev, dev_ms, orb_ms = device_kernels(lambda: FR.build_frame_mono(
+        img, sysm.cam, sysm.spec, with_lines=True, line_capacity=128))
+    n_ln_dev, ln_dev_ms, _ = device_kernels(lambda: LN.extract_lines(img, capacity=128))
+    print(f"build_frame_mono: {n_dev} device kernels, {dev_ms:.3f} ms device time, "
+          f"orb_describe {orb_ms:.5f} ms; extract_lines inside it "
+          f"{_ms(lines_ms[1:])} synced, {n_ln_dev} device kernels, "
+          f"{ln_dev_ms:.3f} ms device time, on {card}")
+
+    # one B = 1 orb_describe launch against its plain version
+    spec = sysm.spec
+    lv, det = detect(img, spec)
+    xy = torch.cat([d[1] for d in det])[None]
+    ang_k, desc_k = OK.orb_describe([lv], xy, spec)
+    ang_p, desc_p = OK.orb_describe_reference([lv], xy, spec)
+    torch.cuda.synchronize()
+    err1 = float((ang_k - ang_p).abs().max())
+    agree1 = bit_agreement(desc_k, desc_p)
+    k1_ms = graph_ms(lambda: OK.orb_describe([lv], xy, spec))
+    p1_ms = cuda_ms(lambda: OK.orb_describe_reference([lv], xy, spec))
+    b1_ms, b1_by, _, _ = kernel_bound([lv], xy, spec, OK)
+    print(f"orb_describe B=1 ({xy.shape[1]} slots, {MONO_W}x{MONO_H}, 8 levels): "
+          f"angle max abs err {err1:.3e} rad, bits agree {agree1:.6f}; kernel "
+          f"{k1_ms:.5f} ms (graph of 20), plain {p1_ms:.4f} ms, bound {b1_ms:.5f} ms "
+          f"by {b1_by}, on {card}")
+
+    # extract_lines on the card against the CPU
+    fg = LN.extract_lines(img, capacity=128)
+    fc = LN.extract_lines(img.cpu(), capacity=128)
+    v = fc.valid
+    ints_equal = bool(torch.equal(fg.valid.cpu(), v)
+                      and torch.equal(fg.octave.cpu(), fc.octave))
+    seg_err = float((fg.seg.cpu()[v] - fc.seg[v]).abs().max()) if ints_equal else float("nan")
+    print(f"extract_lines card vs CPU: {int(v.sum())} lines, validity and octaves "
+          f"equal {ints_equal}, endpoint max abs err {seg_err:.3e} px, bits agree "
+          f"{bit_agreement(fg.desc.cpu()[v], fc.desc[v]) if ints_equal else float('nan'):.5f}")
+
+    # bench_mono.py's ablation: the same sequence points only
+    abl = System(mono_settings(Settings, K, False), Sensor.MONOCULAR, device)
+    abl_times, _ = _mono_run(abl, frames, device)
+    abl_state = abl.get_tracking_state()
+    abl_lost = sum(e.lost for e in abl.trajectory)
+    abl_init = int(round(abl.trajectory[1].ts * 30.0)) if len(abl.trajectory) > 1 else -1
+    print(f"mono points only: state {abl_state.name}, lost {abl_lost}, init at frame "
+          f"{abl_init}, keyframes {abl.n_kfs}, median "
+          f"{np.median(abl_times[abl_init + 10:]):.2f} ms/frame over frames "
+          f"{abl_init + 10}-{len(frames) - 1}, on {card}")
+
+    lt_lines, lt_points = _low_texture_trials(card, device)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    checks = {
+        "state OK": state == TrackingState.OK,
+        "no frame lost": n_lost == 0,
+        "poses finite": bool(np.isfinite(est).all()),
+        "map lines": n_lns >= 1,
+        "one B=1 launch per frame": launches == len(frames),
+        "orb_describe B=1 agrees": err1 <= ANGLE_ATOL and agree1 >= BIT_AGREE,
+        "extract_lines integers equal card vs CPU": ints_equal,
+        "low-texture init with lines succeeds": lt_lines >= 1,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: mono path failed: {failed}")
     return launches
 
 

@@ -2,8 +2,9 @@
 
 The system has no weights: its "parameters" are its device state. These
 functions turn the reference's `FrameData` / `MapState` / `StepState` /
-`LocalWindow` / `BAProblem` / `PoseGraphEdges` / `Vocab` / `BowTable` — NamedTuples whose leaves are numpy arrays, as
-`jax.device_get` returns them — into the port's tensors on a device, and
+`LocalWindow` / `LineWindow` / `LineFeatures` / `BAProblem` /
+`PoseGraphEdges` / `TwoViewResult` / `Vocab` / `BowTable` — NamedTuples
+whose leaves are numpy arrays, as `jax.device_get` returns them — into the port's tensors on a device, and
 back. uint32 descriptors cross as an int32 view of the same bits; the
 reference's `OrbFeatures.bits` cache is dropped on the way in.
 
@@ -25,7 +26,8 @@ from splslam_tpu_torch.optim.sim3 import PoseGraphEdges
 from splslam_tpu_torch.slam.frame import FrameData
 from splslam_tpu_torch.slam.map import KeyFrames, MapLines, MapPoints, MapState
 from splslam_tpu_torch.slam.pipeline import StepState
-from splslam_tpu_torch.slam.tracking import LocalWindow
+from splslam_tpu_torch.slam.initializer import TwoViewResult
+from splslam_tpu_torch.slam.tracking import LineWindow, LocalWindow
 
 # Fields that hold uint32 descriptor words on the JAX side.
 _U32_FIELDS = frozenset({"desc", "ldesc"})
@@ -64,6 +66,14 @@ def orb_features_from_numpy(f, device) -> OrbFeatures:
     return _from(OrbFeatures, f, device)
 
 
+def line_features_from_numpy(f, device) -> LineFeatures:
+    return _from(LineFeatures, f, device)
+
+
+def line_features_to_numpy(f: LineFeatures) -> LineFeatures:
+    return _tree_to(f)
+
+
 def frame_from_numpy(f, device) -> FrameData:
     return FrameData(
         feat=orb_features_from_numpy(f.feat, device),
@@ -93,6 +103,22 @@ def step_state_from_numpy(s, device) -> StepState:
 
 def local_window_from_numpy(w, device) -> LocalWindow:
     return _from(LocalWindow, w, device)
+
+
+def line_window_from_numpy(w, device) -> LineWindow:
+    return _from(LineWindow, w, device)
+
+
+def line_window_to_numpy(w: LineWindow) -> LineWindow:
+    return _tree_to(w)
+
+
+def two_view_result_from_numpy(r, device) -> TwoViewResult:
+    return _from(TwoViewResult, r, device)
+
+
+def two_view_result_to_numpy(r: TwoViewResult) -> TwoViewResult:
+    return _tree_to(r)
 
 
 def frame_to_numpy(f: FrameData) -> FrameData:

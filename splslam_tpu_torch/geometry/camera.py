@@ -2,8 +2,8 @@
 
 The port keeps the intrinsics as Python floats, each rounded to float32
 at creation, so arithmetic against float32 tensors sees exactly the
-values the reference stores as f32 scalars. Distortion fields are kept;
-the stereo slice works on undistorted keypoints and never reads them.
+values the reference stores as f32 scalars. `undistort_points` inverts
+the radial-tangential model for monocular frames with distortion.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 def _f32(v) -> float:
@@ -39,3 +40,26 @@ class Camera(NamedTuple):
         return Camera(_f32(fx), _f32(fy), _f32(cx), _f32(cy), _f32(k1),
                       _f32(k2), _f32(p1), _f32(p2), _f32(k3), _f32(bf),
                       int(width), int(height))
+
+
+def distort_normalized(cam: Camera, xy: torch.Tensor) -> torch.Tensor:
+    """Apply radial-tangential distortion to normalized coords (N,2)."""
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
+def undistort_points(cam: Camera, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Invert the distortion model by a fixed number of fixed-point
+    iterations (cv::undistortPoints analog). (N,2) -> (N,2) pixels."""
+    x0 = (uv[..., 0] - cam.cx) / cam.fx
+    y0 = (uv[..., 1] - cam.cy) / cam.fy
+    xy0 = torch.stack([x0, y0], dim=-1)
+    xy = xy0
+    for _ in range(iters):
+        xy = xy - (distort_normalized(cam, xy) - xy0)
+    return torch.stack([xy[..., 0] * cam.fx + cam.cx,
+                        xy[..., 1] * cam.fy + cam.cy], dim=-1)

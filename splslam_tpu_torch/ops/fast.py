@@ -43,9 +43,17 @@ def fast_score_map(image: torch.Tensor, threshold: float) -> torch.Tensor:
     d_dark = img16[None] - ring     # >t means ring pixel darker by t
     score = torch.maximum(_arc_min(d_bright), _arc_min(d_dark)).float()
     score = torch.where(score > threshold, score, 0.0)
-    inside = torch.zeros((H, W), dtype=torch.bool, device=image.device)
-    inside[3:H - 3, 3:W - 3] = True
-    return torch.where(inside, score, 0.0)
+    return torch.where(inside_mask(H, W, 3, image.device), score, 0.0)
+
+
+def inside_mask(H: int, W: int, b: int, device) -> torch.Tensor:
+    """(H,W) bool, True at least `b` px from every edge. Built by
+    comparisons: writing a Python scalar into a CUDA tensor makes the host
+    wait for the device."""
+    ys = torch.arange(H, device=device)
+    xs = torch.arange(W, device=device)
+    return (((ys >= b) & (ys < H - b))[:, None]
+            & ((xs >= b) & (xs < W - b))[None, :])
 
 
 def nms3(score: torch.Tensor) -> torch.Tensor:

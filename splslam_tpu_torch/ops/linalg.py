@@ -8,11 +8,13 @@ solves with SVDs; these are the same quantities without them:
 - `nullspace_vector`: the right singular vector of the smallest singular
   value of square matrices, by inverse iteration on A^T A through one LU
   of A (float64);
-- `rotation_and_singular_values`: for 3x3 matrices M = U diag(s) V^T, the
-  rotation U diag(1, 1, det(U) det(V)) V^T (Horn's and Umeyama's
-  solution; the orthogonal polar factor when det(M) > 0) and the
-  singular values, from a cyclic Jacobi eigen-decomposition of M^T M
-  (float64).
+- `svd3`: a full SVD of 3x3 matrices, M = U diag(s) V^T, from a cyclic
+  Jacobi eigen-decomposition of M^T M (float64): V from the
+  eigenvectors, u_i = M v_i / s_i, the third column completed by a cross
+  product with the sign that keeps M = U diag(s) V^T;
+- `rotation_and_singular_values`: for 3x3 matrices, the rotation
+  U diag(1, 1, det(U) det(V)) V^T (Horn's and Umeyama's solution; the
+  orthogonal polar factor when det(M) > 0) and the singular values.
 """
 
 from __future__ import annotations
@@ -56,10 +58,10 @@ def _unit(x: torch.Tensor, fallback: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 1e-30, x / torch.clamp(n, min=1e-300), fallback)
 
 
-def rotation_and_singular_values(M: torch.Tensor):
-    """[...,3,3] -> (R [...,3,3], s [...,3] descending) with M = U diag(s)
-    V^T and R = U diag(1, 1, det(U) det(V)) V^T, the rotation closest to
-    M (rank 2 included: the third column of U is then u1 x u2)."""
+def svd3(M: torch.Tensor):
+    """[...,3,3] -> (U, s descending, V), float64, with M = U diag(s) V^T
+    and U, V orthogonal (rank 2 and lower included). Singular vectors of
+    repeated singular values are one valid choice among many."""
     Md = M.double()
     w, V = _jacobi_eig3(Md.transpose(-1, -2) @ Md)
     s = torch.sqrt(torch.clamp(w, min=0.0))
@@ -72,9 +74,20 @@ def rotation_and_singular_values(M: torch.Tensor):
     e = torch.eye(3, dtype=Md.dtype, device=M.device)
     axis = torch.where(torch.abs(u1[..., :1]) < 0.9, e[0], e[1])
     u2 = _unit(u2, _unit(torch.linalg.cross(u1, axis), v2))
-    U = torch.stack([u1, u2, torch.linalg.cross(u1, u2)], dim=-1)
+    # u3 = +-u1 x u2: the sign of det(M) det(V) (either sign when s3 = 0)
+    sgn = torch.where(torch.linalg.det(Md) * torch.linalg.det(V) < 0, -1.0, 1.0)
+    U = torch.stack([u1, u2, sgn[..., None] * torch.linalg.cross(u1, u2)], dim=-1)
+    return U, s, V
+
+
+def rotation_and_singular_values(M: torch.Tensor):
+    """[...,3,3] -> (R [...,3,3], s [...,3] descending) with M = U diag(s)
+    V^T and R = U diag(1, 1, det(U) det(V)) V^T, the rotation closest to
+    M (rank 2 included)."""
+    U, s, V = svd3(M)
     D = torch.ones_like(s)
-    D = torch.cat([D[..., :2], torch.linalg.det(V)[..., None]], dim=-1)
+    D = torch.cat([D[..., :2], (torch.linalg.det(U) * torch.linalg.det(V))[..., None]],
+                  dim=-1)
     R = (U * D[..., None, :]) @ V.transpose(-1, -2)
     return R.to(M.dtype), s.to(M.dtype)
 

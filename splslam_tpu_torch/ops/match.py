@@ -110,15 +110,15 @@ def float_mod(x: torch.Tensor, y: float) -> torch.Tensor:
 
 
 def rotation_consistency(
-    angle1: torch.Tensor, angle2: torch.Tensor, matches: torch.Tensor
+    angle1: torch.Tensor, angle2: torch.Tensor, matches: torch.Tensor,
+    period: float = 2.0 * math.pi,
 ) -> torch.Tensor:
-    """Keep matches whose angle difference falls in the 3 most common of
-    30 histogram bins (reference ORBmatcher::ComputeThreeMaxima)."""
+    """Keep matches whose angle difference (mod `period`) falls in the 3
+    most common of 30 histogram bins (reference
+    ORBmatcher::ComputeThreeMaxima)."""
     ok = matches >= 0
-    rot = angle1 - angle2[matches.clamp(min=0).long()]
-    two_pi = 2.0 * math.pi
-    rot = float_mod(rot, two_pi)
-    bins = torch.clamp((rot * (HISTO_BINS / two_pi)).to(torch.int32),
+    rot = float_mod(angle1 - angle2[matches.clamp(min=0).long()], period)
+    bins = torch.clamp((rot * (HISTO_BINS / period)).to(torch.int32),
                        0, HISTO_BINS - 1).long()
     hist = torch.zeros((HISTO_BINS,), dtype=torch.int32, device=rot.device)
     hist.index_add_(0, bins, ok.to(torch.int32))
@@ -126,3 +126,11 @@ def rotation_consistency(
     thr = torch.maximum(top3[2], (0.1 * top3[0].float()).to(torch.int32))
     good_bin = hist >= torch.clamp(thr, min=1)
     return torch.where(ok & good_bin[bins], matches, -1)
+
+
+def rotation_consistency_lines(
+    angle1: torch.Tensor, angle2: torch.Tensor, matches: torch.Tensor
+) -> torch.Tensor:
+    """`rotation_consistency` for undirected line angles: the differences
+    are taken mod pi (reference Linematcher.cc:233)."""
+    return rotation_consistency(angle1, angle2, matches, math.pi)

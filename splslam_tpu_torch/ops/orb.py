@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from splslam_tpu_torch.ops.fast import fast_corners
+from splslam_tpu_torch.ops.fast import fast_corners, inside_mask
 from splslam_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid
 from splslam_tpu_torch.ops.topk import grid_topk
 
@@ -73,9 +73,7 @@ def detect(
             continue
         H, W = spec.sizes[lv]
         score = fast_corners(img, threshold)
-        inside = torch.zeros((H, W), dtype=torch.bool, device=dev)
-        inside[b:H - b, b:W - b] = True
-        score = torch.where(inside, score, 0.0)
+        score = torch.where(inside_mask(H, W, b, dev), score, 0.0)
         xy, resp, valid = grid_topk(score, spec.budgets[lv], cell=cell,
                                     cell_k=cell_k)
         det.append((lv, xy, resp, valid))

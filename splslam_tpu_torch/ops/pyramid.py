@@ -54,10 +54,20 @@ class PyramidSpec(NamedTuple):
         return sum(self.budgets)
 
 
-def _lerp_table(n_in: int, n_out: int):
-    pos = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-    i0 = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 2)
-    return i0, (pos - i0).astype(np.float32)
+_LERP: dict = {}
+
+
+def _lerp_table(n_in: int, n_out: int, device):
+    """(first source index [n_out] int64, weight of the second [n_out]
+    f32) on `device`, sent there once per size pair: copying a pageable
+    host array to the card makes the host wait."""
+    key = (n_in, n_out, str(device))
+    if key not in _LERP:
+        pos = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+        i0 = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 2)
+        _LERP[key] = (torch.from_numpy(i0).to(device),
+                      torch.from_numpy((pos - i0).astype(np.float32)).to(device))
+    return _LERP[key]
 
 
 def resize_bilinear(image: torch.Tensor, hw_out: tuple[int, int]) -> torch.Tensor:
@@ -65,14 +75,11 @@ def resize_bilinear(image: torch.Tensor, hw_out: tuple[int, int]) -> torch.Tenso
     INTER_LINEAR analog, reference src/ORBextractor.cc:1107)."""
     Hi, Wi = image.shape
     Ho, Wo = hw_out
-    dev = image.device
-    y0, fy = _lerp_table(Hi, Ho)
-    y0 = torch.from_numpy(y0).to(dev)
-    fy = torch.from_numpy(fy).to(dev)[:, None]
+    y0, fy = _lerp_table(Hi, Ho, image.device)
+    fy = fy[:, None]
     tmp = image[y0] * (1 - fy) + image[y0 + 1] * fy
-    x0, fx = _lerp_table(Wi, Wo)
-    x0 = torch.from_numpy(x0).to(dev)
-    fx = torch.from_numpy(fx).to(dev)[None, :]
+    x0, fx = _lerp_table(Wi, Wo, image.device)
+    fx = fx[None, :]
     return tmp[:, x0] * (1 - fx) + tmp[:, x0 + 1] * fx
 
 

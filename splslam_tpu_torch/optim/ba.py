@@ -1,12 +1,17 @@
-"""Bundle adjustment (port of splslam_tpu/optim/ba.py, points only):
-`ba_solve`, the local window's Schur-complement Levenberg-Marquardt, and
+"""Bundle adjustment (port of splslam_tpu/optim/ba.py): `ba_solve`, the
+local window's Schur-complement Levenberg-Marquardt, `ba_solve_arbitrated`,
+its dual point/line form, and
 `ba_solve_pcg`, the whole map's matrix-free Schur Gauss-Newton with
 preconditioned conjugate gradients.
 
 The problem is an edge table (one row per observation: camera slot,
 landmark slot, measurement, information, validity). Mono edges are
 2-dof reprojection residuals (chi2 5.991); stereo edges add the
-right-image u for a 3-dof residual (chi2 7.815). Per-edge Jacobian
+right-image u for a 3-dof residual (chi2 7.815). A map line rides as its
+two endpoints, ordinary landmark slots; each observation of it is a pair
+of 1-dof edges r = l . [u, v, 1] against the observed 2D line l, robust
+at 3.841 each and classified by the pair's joint chi2 against 5.991
+(reference EdgeSE3ProjectXYZLines, src/Optimizer.cc:2630-2753). Per-edge Jacobian
 blocks are Huber-weighted and summed into one (camera band, landmark)
 cell buffer; the camera system is reduced by the Schur complement on
 the 3x3 landmark blocks and solved densely; landmarks follow by
@@ -16,11 +21,12 @@ re-classification of the edges between rounds.
 The LM accept/reject, the damping schedule and every guard are
 `torch.where` selections on the device: the solve never reads a value
 back to the host. Everything is float32; keep TF32 off on a GPU. The
-line-edge fields of `BAProblem` stay None on this slice.
+global solver `ba_solve_pcg` takes points only.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -46,6 +52,8 @@ _TRIU3, _FULL3 = _triu_maps(3)
 
 CHI2_MONO = 5.991    # 2-dof 95% (reference Optimizer.cc:2591)
 CHI2_STEREO = 7.815  # 3-dof 95% (reference Optimizer.cc:2592)
+CHI2_LINE = 3.841    # 1-dof 95% per line-endpoint edge
+CHI2_POINT_JOINT = 5.991  # joint gate for an endpoint pair (:2753)
 LM_DAMPING = 1e-4    # initial LM lambda, halved on accept, x4 on reject
 
 
@@ -65,9 +73,9 @@ class BAProblem(NamedTuple):
     e_ur: torch.Tensor          # [E] right-image u; < 0 => mono edge
     e_inv_sigma2: torch.Tensor  # [E]
     e_ok: torch.Tensor          # [E] bool
-    e_coef: torch.Tensor | None = None  # line edges: later slice
-    e_line: torch.Tensor | None = None
-    e_pair: torch.Tensor | None = None
+    e_coef: torch.Tensor | None = None  # [E,3] observed 2D line (line edges)
+    e_line: torch.Tensor | None = None  # [E] bool — row is a line edge
+    e_pair: torch.Tensor | None = None  # [E] int32 partner edge row (-1 none)
 
 
 class BAResult(NamedTuple):
@@ -214,6 +222,17 @@ def _edge_terms(Tcw_all, xyz_all, cam: Camera, p: BAProblem):
     row_u = torch.stack([cam.fx * iz, zeros, -cam.fx * x * iz2], dim=-1)
     row_v = torch.stack([zeros, cam.fy * iz, -cam.fy * y * iz2], dim=-1)
     duv_dpc = torch.stack([row_u, row_v, srow], dim=1)      # [E,3,3]
+    if p.e_coef is not None:
+        # line-endpoint edges: the 1-dof residual l . [u, v, 1] in row 0
+        lx, ly = p.e_coef[:, 0], p.e_coef[:, 1]
+        r_line = lx * u + ly * v + p.e_coef[:, 2]
+        row_l = lx[:, None] * row_u + ly[:, None] * row_v
+        is_l = p.e_line
+        r = torch.where(is_l[:, None],
+                        torch.stack([r_line, zeros, zeros], dim=-1), r)
+        zl = torch.zeros_like(row_l)
+        duv_dpc = torch.where(is_l[:, None, None],
+                              torch.stack([row_l, zl, zl], dim=1), duv_dpc)
     # J_c = [duv_dpc | -duv_dpc hat(pc)], J_p = duv_dpc @ R.
     hatp = se3.hat(pc)
     J_rot = -_bsum(duv_dpc[:, :, :, None], hatp[:, None, :, :], 2)
@@ -228,14 +247,27 @@ def _huber_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
                        torch.sqrt(delta2 / torch.clamp(chi2, min=1e-12)))
 
 
-def _gates(p: BAProblem) -> torch.Tensor:
-    """Per-edge chi2 gate, which is also the Huber delta^2 (points)."""
-    if p.e_coef is not None:
-        raise NotImplementedError("line edges: later slice")
-    return torch.where(p.e_ur >= 0, CHI2_STEREO, CHI2_MONO)
+def _gates(p: BAProblem):
+    """(classification gate [E], Huber delta^2 [E], joint-chi2 fn). Points
+    classify and robustify per edge (5.991 mono / 7.815 stereo); a line
+    endpoint edge robustifies at 3.841 and classifies by the joint chi2 of
+    its pair against 5.991, the partner counting only while it is live."""
+    gate = torch.where(p.e_ur >= 0, CHI2_STEREO, CHI2_MONO)
+    if p.e_coef is None:
+        return gate, gate, lambda chi2, valid: chi2
+    huber = torch.where(p.e_line, CHI2_LINE, gate)
+    gate = torch.where(p.e_line, CHI2_POINT_JOINT, gate)
+    pv = p.e_pair >= 0
+    pi = p.e_pair.clamp(min=0).long()
+
+    def joint(chi2, valid):
+        partner = torch.where(pv & valid[pi], chi2[pi], 0.0)
+        return torch.where(p.e_line, chi2 + partner, chi2)
+
+    return gate, huber, joint
 
 
-def _finish(cam: Camera, p: BAProblem, gate, Tcw_all, xyz_all, ng, ngl) -> BAResult:
+def _finish(cam: Camera, p: BAProblem, gates, Tcw_all, xyz_all, ng, ngl) -> BAResult:
     """The solvers' common end. No outcome may poison the map: a camera or
     point that ends non-finite reverts to its input. Then the final chi2
     gate."""
@@ -246,8 +278,9 @@ def _finish(cam: Camera, p: BAProblem, gate, Tcw_all, xyz_all, ng, ngl) -> BARes
     xyz_all = torch.where(pt_fin[:, None], xyz_all, p.xyz)
     nsr = torch.sum((~cam_fin).to(torch.int32)) \
         + torch.sum((p.lm_ok & ~pt_fin).to(torch.int32))
+    gate, _, joint = gates
     _, _, _, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
-    inlier = p.e_ok & (chi2 <= gate) & z_ok
+    inlier = p.e_ok & (joint(chi2, p.e_ok & z_ok) <= gate) & z_ok
     total = torch.sum(torch.where(inlier, chi2, 0.0))
     return BAResult(Tcw_all, xyz_all, inlier, chi2, total,
                     n_guarded=ng.to(torch.int32), n_state_revert=nsr.to(torch.int32),
@@ -262,7 +295,8 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
     L = p.xyz.shape[0]
     Cf = C if n_free is None else n_free
     dev = p.Tcw.device
-    gate = _gates(p)
+    gates = _gates(p)
+    gate, huber, joint = gates
     eye3 = torch.eye(3, device=dev)
 
     # Every per-edge block goes into one (camera band, landmark) cell:
@@ -288,7 +322,7 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
         instead of vanishing), raw chi2 and depth-ok."""
         r, J_c, J_p, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
         live = active & z_ok
-        w = _huber_weight(chi2, gate) * p.e_inv_sigma2 * live.to(torch.float32)
+        w = _huber_weight(chi2, huber) * p.e_inv_sigma2 * live.to(torch.float32)
         rw = r * w[:, None]
         g_c = _bsum(J_c, rw[:, :, None], 1)
         g_p = _bsum(J_p, rw[:, :, None], 1)
@@ -309,10 +343,10 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
         bp = acc_p[:, 6:]
         W2 = acc[:Cf, :, 36:].reshape(Cf, L, 6, 3).permute(0, 2, 1, 3) \
             .reshape(Cf * 6, L * 3)
-        rho = torch.where(chi2 <= gate, chi2,
-                          2.0 * torch.sqrt(gate * torch.clamp(chi2, min=0.0))
-                          - gate)
-        penalty = torch.maximum(2.0 * torch.sqrt(gate * 1e8), rho)
+        rho = torch.where(chi2 <= huber, chi2,
+                          2.0 * torch.sqrt(huber * torch.clamp(chi2, min=0.0))
+                          - huber)
+        penalty = torch.maximum(2.0 * torch.sqrt(huber * 1e8), rho)
         cost = torch.sum(torch.where(live, rho,
                                      torch.where(active, penalty, 0.0)))
         return (Hcc, bc, Hpp, bp, W2), cost, chi2, z_ok
@@ -403,9 +437,49 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
             # candidate leaves the state unharmed.
             ng = ng + torch.where(accept, n_bad, 0)
             ngl = ngl + torch.where(accept, n_bad_lm, 0)
-        active = p.e_ok & (chi2 <= gate) & z_ok
+        active = p.e_ok & (joint(chi2, p.e_ok & z_ok) <= gate) & z_ok
 
-    return _finish(cam, p, gate, Tcw_all, xyz_all, ng, ngl)
+    return _finish(cam, p, gates, Tcw_all, xyz_all, ng, ngl)
+
+
+def ba_solve_arbitrated(cam: Camera, p: BAProblem, *, rounds: int = 2,
+                        iters: int = 5, n_free: int | None = None) -> BAResult:
+    """Dual point-BA and line-BA with per-keyframe pose arbitration, then a
+    joint pass (reference LocalBundleAdjustmentmain, src/Optimizer.cc:
+    2875-2902): the problem is solved with only its point edges and with
+    only its line edges; each camera starts the joint solve from the pose
+    of the modality with the lower unit error (inlier chi2 / inlier
+    count, src/Optimizer.cc:3471-3593), a modality with no surviving edge
+    on a camera never winning it. Landmarks start from the solve that
+    moved them. The per-camera sums run in a fixed order."""
+    if p.e_line is None:
+        return ba_solve(cam, p, rounds=rounds, iters=iters, n_free=n_free)
+    C = p.Tcw.shape[0]
+    kw = dict(rounds=rounds, iters=iters, n_free=n_free)
+    resP = ba_solve(cam, p._replace(e_ok=p.e_ok & ~p.e_line), **kw)
+    resL = ba_solve(cam, p._replace(e_ok=p.e_ok & p.e_line), **kw)
+    cells = _ordered_cells(p.e_cam.long(), C, max_rows=p.e_cam.shape[0])
+
+    def unit_error(res, mask):
+        ok = (res.e_inlier & mask).to(torch.float32)
+        sums = _sum_cells(cells, torch.stack([res.chi2 * ok, ok], dim=1))
+        num, den = sums[:, 0], sums[:, 1]
+        return torch.where(den > 0, num / torch.clamp(den, min=1.0), math.inf), den
+
+    uP, _ = unit_error(resP, ~p.e_line)
+    uL, nL = unit_error(resL, p.e_line)
+    pick_line = (uL < uP) & (nL > 0)
+    Tcw0 = torch.where(pick_line[:, None, None], resL.Tcw, resP.Tcw)
+    Lm = p.xyz.shape[0]
+    line_lm = torch.zeros((Lm + 1,), dtype=torch.bool, device=p.xyz.device)
+    line_lm.index_fill_(0, torch.where(p.e_line, p.e_lm.long(), Lm), True)
+    xyz0 = torch.where(line_lm[:Lm, None], resL.xyz, resP.xyz)
+    res = ba_solve(cam, p._replace(Tcw=Tcw0, xyz=xyz0), **kw)
+    return res._replace(
+        n_guarded=res.n_guarded + resP.n_guarded + resL.n_guarded,
+        n_state_revert=res.n_state_revert + resP.n_state_revert + resL.n_state_revert,
+        n_lm_singular=res.n_lm_singular + resP.n_lm_singular + resL.n_lm_singular,
+    )
 
 
 # ----------------------------------------------------------------------
@@ -443,10 +517,13 @@ def ba_solve_pcg(cam: Camera, p: BAProblem, *, rounds: int = 2,
     The segment sums are `index_add_` over the unsorted edge table: on
     CUDA colliding rows are added in launch order, so two runs differ by
     float noise."""
+    if p.e_coef is not None:
+        raise NotImplementedError("line edges in global BA: later slice")
     C = p.Tcw.shape[0]
     L = p.xyz.shape[0]
     dev = p.Tcw.device
-    gate = _gates(p)
+    gates = _gates(p)
+    gate = gates[0]
     free_f = p.cam_free.to(torch.float32)[:, None]
     eye3 = torch.eye(3, device=dev)
     eye6 = torch.eye(6, device=dev)
@@ -568,4 +645,4 @@ def ba_solve_pcg(cam: Camera, p: BAProblem, *, rounds: int = 2,
             ngl = ngl + n_bad_lm
         _, _, _, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
         active = p.e_ok & (chi2 <= gate) & z_ok
-    return _finish(cam, p, gate, Tcw_all, xyz_all, ng, ngl)
+    return _finish(cam, p, gates, Tcw_all, xyz_all, ng, ngl)

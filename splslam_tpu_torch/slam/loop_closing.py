@@ -387,9 +387,10 @@ class LoopCloser:
                           dtype=torch.float32).to(sys.device)
         gen = torch.Generator(device=sys.device)
         gen.manual_seed(kf)
-        # stereo: the scale is fixed (reference Sim3Solver mbFixScale)
+        # the scale is fixed for stereo, free for monocular (reference
+        # Sim3Solver mbFixScale)
         n_m, n_opt, n_proj, n_grd, S12 = compute_sim3_attempt(
-            sys.map, kf, cand, K3, True, generator=gen)
+            sys.map, kf, cand, K3, sys.sensor.name != "MONOCULAR", generator=gen)
         self.n_guarded_verify += int(n_grd)
         if (int(n_m) < MIN_MATCHES or int(n_opt) < MIN_SIM3_INLIERS
                 or int(n_proj) < MIN_PROJ_MATCHES):

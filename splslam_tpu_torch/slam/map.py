@@ -6,9 +6,10 @@ states, the update functions here write the big tables IN PLACE and
 return the state with its scalar counters replaced; callers must treat
 the state they passed in as consumed. The counters (`n_pts`, `n_lns`,
 `n_kfs`) are 0-dim int32 tensors on the device, so no update needs a
-host round trip. Descriptors are int32 with the bits of uint32 words.
-Line tables are kept (capacity set by the caller) but stay empty on this
-points-only slice.
+host round trip: a row is written through a 1-d index tensor
+(`index_copy_`), never through a 0-dim tensor index, which would make the
+host wait for the device. Descriptors are int32 with the bits of uint32
+words.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class MapPoints(NamedTuple):
 
 
 class MapLines(NamedTuple):
-    """3D line landmarks: start/mid/end points (empty on this slice)."""
+    """3D line landmarks: start/mid/end points."""
 
     xyz: torch.Tensor        # [Q,3,3]
     desc: torch.Tensor       # [Q,8] int32
@@ -173,7 +174,7 @@ def insert_keyframe(st: MapState, frame: FrameData, Tcw: torch.Tensor,
                     frame_id: int, ts: float) -> tuple[MapState, torch.Tensor]:
     """Append a keyframe row (in place) and bump n_obs of its observed
     landmarks. Returns (state, kf_index as a 0-dim tensor)."""
-    k = st.n_kfs.long()
+    k = st.n_kfs.long().reshape(1)
     kfs = st.kfs
     f = frame.feat
     ln = frame.lines
@@ -186,10 +187,10 @@ def insert_keyframe(st: MapState, frame: FrameData, Tcw: torch.Tensor,
         (kfs.lvalid, ln.valid), (kfs.ll_idx, ll_idx), (kfs.loctave, ln.octave),
     )
     for table, row in rows:
-        table[k] = row
-    kfs.valid[k] = True
-    kfs.frame_id[k] = frame_id
-    kfs.ts[k] = ts
+        table.index_copy_(0, k, row[None].to(table.dtype))
+    kfs.valid.index_fill_(0, k, True)
+    kfs.frame_id.index_fill_(0, k, frame_id)
+    kfs.ts.index_fill_(0, k, ts)
     # Stereo observations count double (reference MapPoint::AddObservation).
     obs_w = torch.where(frame.u_right >= 0, 2, 1).to(torch.int32)
     st.pts.n_obs.index_add_(0, lm_idx.clamp(min=0).long(),
@@ -234,7 +235,7 @@ def create_stereo_points(
     cap = st.pts.xyz.shape[0]
     create = create & (slots < cap)
 
-    Twc = torch.linalg.inv(Tcw)
+    Twc = torch.linalg.inv_ex(Tcw).inverse   # inv_ex: no host sync
     z = frame.depth
     x = (f.xy[:, 0] - cam_cx) / cam_fx * z
     y = (f.xy[:, 1] - cam_cy) / cam_fy * z
@@ -266,6 +267,18 @@ def create_stereo_points(
     return st._replace(n_pts=st.n_pts + n_new), new_lm_idx
 
 
+def update_point_stats(st: MapState, idx: torch.Tensor, visible: torch.Tensor,
+                       found: torch.Tensor) -> MapState:
+    """Bump mnVisible/mnFound of the landmarks `idx` (-1 none) where
+    `visible` / `found` (reference Tracking::SearchLocalPoints /
+    TrackLocalMap), in place. Counters add, so repeated ids are summed."""
+    safe = idx.clamp(min=0).long()
+    ok = idx >= 0
+    st.pts.n_visible.index_add_(0, safe, (ok & visible).to(torch.int32))
+    st.pts.n_found.index_add_(0, safe, (ok & found).to(torch.int32))
+    return st
+
+
 def update_point_stats2(st: MapState, visible_ids: torch.Tensor,
                         found_ids: torch.Tensor) -> MapState:
     """Bump mnVisible/mnFound counters of tracked landmarks (in place)."""
@@ -273,6 +286,29 @@ def update_point_stats2(st: MapState, visible_ids: torch.Tensor,
                                 (visible_ids >= 0).to(torch.int32))
     st.pts.n_found.index_add_(0, found_ids.clamp(min=0).long(),
                               (found_ids >= 0).to(torch.int32))
+    return st
+
+
+def update_line_stats(st: MapState, visible_ids: torch.Tensor,
+                      found_ids: torch.Tensor, found_len: torch.Tensor) -> MapState:
+    """Bump map-line visible/found counters and fold the observed 2D
+    length into the running average, 0.7 old + 0.3 new (reference
+    MapLine::IncreaseVisible/IncreaseFound + Update2DLineLength), in
+    place. The reference writes the average with a scatter-set at
+    clip(found_ids, 0): every row writes (rows without a map line write
+    slot 0 its own old value), and the last write wins (`_last_writer`)."""
+    lns = st.lns
+    Q = lns.avg_len2d.shape[0]
+    lns.n_visible.index_add_(0, visible_ids.clamp(min=0).long(),
+                             (visible_ids >= 0).to(torch.int32))
+    fsafe = found_ids.clamp(min=0).long()
+    lns.n_found.index_add_(0, fsafe, (found_ids >= 0).to(torch.int32))
+    old = lns.avg_len2d[fsafe]
+    new = torch.where(found_ids >= 0, 0.7 * old + 0.3 * found_len, old)
+    rows = torch.arange(fsafe.shape[0], device=fsafe.device)
+    w = torch.full((Q,), -1, dtype=torch.long, device=fsafe.device)
+    w.scatter_reduce_(0, fsafe, rows, "amax")
+    lns.avg_len2d.copy_(torch.where(w >= 0, new[w.clamp(min=0)], lns.avg_len2d))
     return st
 
 

@@ -5,7 +5,11 @@ port on the CPU (tracking alone, tracking with local mapping, one
 mapping step from identical maps, the BoW transform and keyframe rows,
 a kidnap with relocalization, and the loop correction: `pose_graph_sim3`,
 `loop_search_and_fuse`, `ba_solve_pcg` and `_correct` from one loop map
-built on the CPU). Every test skips on a host without a card.
+built on the CPU), and the monocular point+line path: the line detector,
+the ORB kernel at B = 1 inside `build_frame_mono`, a short `track_mono`
+run, and a keyframe insertion and a mono frame step that wait for
+nothing. Every test skips
+on a host without a card.
 
 This file imports no JAX (a GPU host need not have it, and
 tests/conftest.py imports it), so on a GPU host run it as
@@ -28,7 +32,12 @@ copies (`loop_closing._host`). BoW word ids and row ids exact (integer
 popcounts). Kidnap: the same tracking states and lost frames, the same
 relocalization keyframe, poses within 1e-3 (with the RANSAC draws made
 equal: each device's own generator draws another stream, and the
-relocalized pose follows the inlier set the draw finds)."""
+relocalized pose follows the inlier set the draw finds). Lines: validity
+and octaves exact, endpoints within 1e-2 px (atan2/cos/sin and fused
+multiply-adds differ on the card), LBD bits >= 99.5% equal. Mono run:
+the same init frame, model and keyframes, poses within 2e-2 (the
+tolerance of the port against the JAX package, tests/test_torch_mono.py),
+the RANSAC hypotheses drawn on the CPU for both devices."""
 
 import numpy as np
 import pytest
@@ -552,3 +561,150 @@ def test_correct_does_not_sync_outside_its_host_copies(cuda, loop_map, monkeypat
     assert pose_err <= 1e-3
     assert int(gpu.map.pts.valid.sum()) < int(sysm.map.pts.valid.sum())
     assert diff <= 0.001 * gpu.map.kfs.lm_idx.numel()
+
+
+# ---------------------------------------------------------------------
+# the monocular point+line path
+# ---------------------------------------------------------------------
+LINE_SEG_ATOL = 1e-2
+
+
+def _grid_frames(n, w=320, h=240):
+    return make_stereo_sequence(n_frames=n, motion="lateral", width=w, height=h,
+                                texture="grid")
+
+
+@pytest.mark.parametrize("backend", ["grow", "fld"])
+def test_extract_lines_gpu_matches_cpu(cuda, backend):
+    from splslam_tpu_torch.ops.lines import extract_lines
+
+    _, _, frames, _ = _grid_frames(1, 640, 480)
+    img = torch.from_numpy(frames[0][0].astype(np.float32))
+    fc = extract_lines(img, capacity=128, backend=backend)
+    fg = extract_lines(img.to(cuda), capacity=128, backend=backend)
+    v = fc.valid
+    torch.testing.assert_close(fg.valid.cpu(), v, rtol=0, atol=0)
+    torch.testing.assert_close(fg.octave.cpu(), fc.octave, rtol=0, atol=0)
+    err = float((fg.seg.cpu()[v] - fc.seg[v]).abs().max())
+    print(f"extract_lines ({backend}) card vs CPU: {int(v.sum())} lines, endpoint "
+          f"max abs err {err:.3e} px, bits agree {bit_agreement(fg.desc[v.to(cuda)], fc.desc[v]):.5f}")
+    assert err <= LINE_SEG_ATOL and int(v.sum()) >= 30
+    assert bit_agreement(fg.desc[v.to(cuda)], fc.desc[v]) >= BIT_AGREE
+
+
+def test_build_frame_mono_runs_the_kernel_at_b1(cuda):
+    """One B = 1 launch a monocular frame; its keypoints, angles and
+    descriptors as the plain version's (the CPU build)."""
+    from splslam_tpu_torch.slam.frame import build_frame_mono
+
+    K, _, frames, _ = _grid_frames(1)
+    img = torch.from_numpy(frames[0][0].astype(np.float32))
+    spec = PyramidSpec.create(240, 320, 4, 1.2, 600)
+    cam = _settings(K, 0.0).camera()
+    fc = build_frame_mono(img, cam, spec, with_lines=True, line_capacity=64)
+    before = OK.orb_describe.launches
+    fg = build_frame_mono(img.to(cuda), cam, spec, with_lines=True, line_capacity=64)
+    assert OK.orb_describe.launches - before == 1
+    for name in ("xy", "octave", "valid"):
+        torch.testing.assert_close(getattr(fg.feat, name).cpu(), getattr(fc.feat, name),
+                                   rtol=0, atol=0, msg=name)
+    assert float((fg.feat.angle.cpu() - fc.feat.angle).abs().max()) <= ANGLE_ATOL
+    assert bit_agreement(fg.feat.desc, fc.feat.desc) >= BIT_AGREE
+    torch.testing.assert_close(fg.lines.valid.cpu(), fc.lines.valid, rtol=0, atol=0)
+
+
+def test_track_mono_gpu_matches_cpu(cuda, monkeypatch):
+    from splslam_tpu_torch.slam import mono as TM
+
+    draw = TM.draw_init_samples
+    monkeypatch.setattr(TM, "draw_init_samples",
+                        lambda mask, n_hyp=TM.N_HYP: draw(mask.cpu(), n_hyp).to(mask.device))
+    K, _, frames, gt = _grid_frames(14)
+    st = _settings(K, 0.0, using_line=True, line_features=64,
+                   enable_local_mapping=False, enable_relocalization=False,
+                   enable_loop_closing=False)
+    runs = []
+    for dev in ("cpu", cuda):
+        sysm = TS.System(st, TS.Sensor.MONOCULAR, dev)
+        before = OK.orb_describe.launches
+        for i, (l, _) in enumerate(frames):
+            sysm.track_mono(l, i * 0.1)
+        assert sysm.get_tracking_state() == TS.TrackingState.OK
+        runs.append((sysm, OK.orb_describe.launches - before))
+    (sc, lc), (sg, lg) = runs
+    assert lc == 0 and lg == len(frames)     # one B = 1 launch a frame
+    assert [e.ts for e in sg.trajectory[:2]] == [e.ts for e in sc.trajectory[:2]]
+    assert sg.init_used_h == sc.init_used_h and sg.n_kfs == sc.n_kfs
+    torch.testing.assert_close(sg.map.kfs.frame_id.cpu(), sc.map.kfs.frame_id)
+    pc, pg = sc.poses(), sg.poses()
+    print(f"track_mono card vs CPU: pose max abs err {np.abs(pg - pc).max():.3e}, "
+          f"map lines {int(sg.map.lns.valid.sum())} / {int(sc.map.lns.valid.sum())}")
+    np.testing.assert_allclose(pg[:, :3, :4], pc[:, :3, :4], atol=2e-2)
+    idx = [int(round(e.ts / 0.1)) for e in sg.trajectory if not e.lost]
+    assert ate_rmse(pg, gt[idx], align_scale=True) < 0.15
+
+
+def test_insert_keyframe_does_not_sync(cuda):
+    """A keyframe row is written through 1-d index tensors: no value is
+    read back to the host (`set_sync_debug_mode("error")`), and the rows
+    are the CPU's."""
+    from splslam_tpu_torch.slam import map as TMap
+
+    K, bf, frames, _ = make_stereo_sequence(n_frames=3, motion="forward",
+                                            width=320, height=240)
+    sysm = TS.System(_settings(K, bf, enable_local_mapping=False,
+                               enable_relocalization=False, enable_loop_closing=False),
+                     TS.Sensor.STEREO, cuda)
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.1)
+    sysm.drain()
+    step = sysm.step
+    mc = sysm.map.to("cpu")
+    st_c, kc = TMap.insert_keyframe(mc, step.frame._replace(
+        feat=type(step.frame.feat)(*[x.cpu() for x in step.frame.feat]),
+        u_right=step.frame.u_right.cpu(), depth=step.frame.depth.cpu(),
+        lines=type(step.frame.lines)(*[x.cpu() for x in step.frame.lines])),
+        step.Tcw.cpu(), step.lm_gid.cpu(), step.ll_gid.cpu(), 7, 0.7)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st_g, kg = TMap.insert_keyframe(sysm.map, step.frame, step.Tcw, step.lm_gid,
+                                        step.ll_gid, 7, 0.7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(kg) == int(kc) == sysm.n_kfs
+    for a, b in ((st_g.kfs, st_c.kfs), (st_g.pts, st_c.pts)):
+        for f in a._fields:
+            torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f), msg=f)
+    assert int(st_g.n_kfs) == int(st_c.n_kfs) == sysm.n_kfs + 1
+
+
+def test_mono_frame_step_does_not_sync(cuda):
+    """After the bootstrap, one monocular point+line frame (ORB at B = 1,
+    the line detector, both matchers, four pose solves, the counter
+    updates) reads nothing back to the host: no Python scalar written
+    into a card tensor, no per-call upload of a host table, no checked
+    inverse."""
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    K, _, frames, _ = _grid_frames(8)
+    st = _settings(K, 0.0, using_line=True, line_features=64,
+                   enable_local_mapping=False, enable_relocalization=False,
+                   enable_loop_closing=False)
+    sysm = TS.System(st, TS.Sensor.MONOCULAR, cuda)
+    for i, (l, _) in enumerate(frames[:-1]):
+        sysm.track_mono(l, i * 0.1)
+    assert sysm.get_tracking_state() == TS.TrackingState.OK
+    img = torch.from_numpy(frames[-1][0].astype(np.uint8)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, step, stats = PL.vo_frame_step_mono(
+            img, sysm.map, sysm.step, sysm.th_depth_m, sysm.ref_kf, sysm.cam,
+            sysm.spec, sysm.scales, m_local=st.local_window,
+            scale_factor=st.scale_factor, n_levels=st.n_levels, with_lines=True,
+            line_capacity=sysm.line_cap, line_cfg=sysm.line_cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(stats).all())
+    assert int(stats[PL.S_N_IN]) > 15

@@ -1,6 +1,7 @@
 """Pose-only Gauss-Newton of the PyTorch port against the JAX reference on
 identical synthetic observations (numpy, seeded), mono and stereo rows,
-with outliers.
+with outliers, and line-midpoint rows (the line cases of
+tests/test_pose_opt.py: lines only, and points then points+lines).
 
 Tolerances: Tcw within 1e-4 (float32 sums taken in another order, and
 XLA's fused multiply-adds, over 16-40 GN steps); inlier masks exact.
@@ -105,5 +106,82 @@ def test_pose_optimize_empty_and_line_tables():
                       torch.zeros(8, dtype=torch.bool))
     res = TG.pose_optimize(torch.eye(4), TCAM, pts)
     torch.testing.assert_close(res.Tcw, torch.eye(4))
-    with pytest.raises(NotImplementedError):
-        TG.pose_optimize(torch.eye(4), TCAM, pts, TG.LineObs.empty(4, "cpu"))
+    # an empty line table adds nothing and moves nothing
+    res = TG.pose_optimize(torch.eye(4), TCAM, pts, TG.LineObs.empty(4, "cpu"))
+    torch.testing.assert_close(res.Tcw, torch.eye(4))
+    assert int(res.n_inlier_ln) == 0 and np.isfinite(res.Tcw.numpy()).all()
+
+
+def _line_scene(seed, n_lines=150, n_pts=0, fixed_dir=False):
+    r = np.random.default_rng(seed)
+    Mid = np.stack([r.uniform(-3, 3, n_lines), r.uniform(-2, 2, n_lines),
+                    r.uniform(4, 12, n_lines)], 1).astype(np.float32)
+    D = (np.tile(np.array([[1.0, 0, 0]], np.float32), (n_lines, 1)) if fixed_dir
+         else r.normal(size=(n_lines, 3)).astype(np.float32))
+    D /= np.linalg.norm(D, axis=1, keepdims=True)
+    xi = r.normal(0, 0.08, 6).astype(np.float32)
+    T = np.asarray(JSE3.se3_exp(jnp.asarray(xi)))
+
+    def proj(P):
+        pc = P @ T[:3, :3].T + T[:3, 3]
+        return np.stack([500.0 * pc[:, 0] / pc[:, 2] + 320.0,
+                         500.0 * pc[:, 1] / pc[:, 2] + 240.0], 1)
+
+    seg = np.concatenate([proj(Mid - 0.5 * D), proj(Mid + 0.5 * D)], 1)
+    seg = (seg + r.normal(0, 0.3, seg.shape)).astype(np.float32)
+    X = np.stack([r.uniform(-3, 3, n_pts), r.uniform(-2, 2, n_pts),
+                  r.uniform(4, 12, n_pts)], 1).astype(np.float32)
+    uv = (proj(X) + r.normal(0, 0.5, (n_pts, 2))).astype(np.float32)
+    return dict(M=Mid, seg=seg, X=X, uv=uv, T=T)
+
+
+def test_line_coefficients_match_jax():
+    seg = _line_scene(3)["seg"]
+    np.testing.assert_allclose(TG.line_coefficients(torch.from_numpy(seg)).numpy(),
+                               np.asarray(JG.line_coefficients(jnp.asarray(seg))),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["lines_only", "main", "weighted"])
+def test_pose_optimize_lines_match_jax(case):
+    """Tcw within 1e-4, line and point inlier masks exact; the solve
+    recovers the true pose within 5e-3 (the observations carry 0.3-0.5 px
+    of noise; test_pose_opt.py's noise-free scenes gate 5e-3 / 1e-3)."""
+    o = _line_scene(8 if case == "lines_only" else 12, n_lines=150 if case ==
+                    "lines_only" else 60, n_pts=0 if case == "lines_only" else 100,
+                    fixed_dir=case != "lines_only")
+    nL, nP = len(o["M"]), len(o["X"])
+    jl = JG.LineObs(jnp.asarray(o["M"]), JG.line_coefficients(jnp.asarray(o["seg"])),
+                    jnp.full(nL, 0.25), jnp.ones(nL, bool))
+    tl = TG.LineObs(torch.from_numpy(o["M"]),
+                    TG.line_coefficients(torch.from_numpy(o["seg"])),
+                    torch.full((nL,), 0.25), torch.ones(nL, dtype=torch.bool))
+    jp = (JG.PointObs.empty(4) if nP == 0 else
+          JG.PointObs(jnp.asarray(o["X"]), jnp.asarray(o["uv"]), jnp.ones(nP),
+                      jnp.ones(nP, bool)))
+    tp = TG.PointObs(torch.zeros((max(nP, 4), 3)), torch.zeros((max(nP, 4), 2)),
+                     torch.ones(max(nP, 4)), torch.zeros(max(nP, 4), dtype=torch.bool))
+    if nP:
+        tp = TG.PointObs(torch.from_numpy(o["X"]), torch.from_numpy(o["uv"]),
+                         torch.ones(nP), torch.ones(nP, dtype=torch.bool))
+    if case == "lines_only":
+        jr = JG.pose_optimize(jnp.eye(4), JCAM, jp, jl, rounds=4, iters=15)
+        tr = TG.pose_optimize(torch.eye(4), TCAM, tp, tl, rounds=4, iters=15)
+        gate = 5e-3
+    elif case == "main":
+        jr = JG.pose_optimize_main(jnp.eye(4), JCAM, jp, jl)
+        tr = TG.pose_optimize_main(torch.eye(4), TCAM, tp, tl)
+        gate = 5e-3
+    else:   # the tracker's data-dependent line weight (a 0-dim tensor)
+        jr = JG.pose_optimize(jnp.eye(4), JCAM, jp, jl, line_weight=jnp.float32(1.0),
+                              rounds=2, iters=4)
+        tr = TG.pose_optimize(torch.eye(4), TCAM, tp, tl,
+                              line_weight=torch.tensor(1.0), rounds=2, iters=4)
+        gate = 1e-2
+    np.testing.assert_allclose(tr.Tcw.numpy(), np.asarray(jr.Tcw), atol=1e-4)
+    np.testing.assert_array_equal(tr.inlier_ln.numpy(), np.asarray(jr.inlier_ln))
+    assert int(tr.n_inlier_ln) == int(jr.n_inlier_ln)
+    if nP:
+        np.testing.assert_array_equal(tr.inlier_pt.numpy(), np.asarray(jr.inlier_pt))
+    np.testing.assert_allclose(float(tr.unit_error), float(jr.unit_error), rtol=1e-3)
+    assert np.abs(tr.Tcw.numpy() - o["T"]).max() < gate

@@ -16,9 +16,14 @@ BA moves the keyframe poses the frames are tracked against); no
 non-finite BA revert (`mapping_state_revert == 0`) on either side;
 equal trajectory export line counts; after a kidnap, the replayed view
 relocalizes within 0.05 m of ground truth (the JAX gate). Slice limits
-raise NotImplementedError; loop correction is no longer one of them
-(tests/test_torch_correction.py drives it)."""
+raise NotImplementedError (lines with local mapping, relocalization or
+loop closing; RGB-D; the text vocabulary); loop correction is no longer
+one of them (tests/test_torch_correction.py drives it). The frame
+builders with lines against the reference's, and the point+line lost
+gate's truth table (tests/test_track_gates.py)."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,7 +31,6 @@ import torch
 from splslam_tpu.io.synthetic import ate_rmse, make_stereo_sequence
 from splslam_tpu.slam import system as JS
 from splslam_tpu_torch.bow import vocabulary as TV
-from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
 from splslam_tpu_torch.slam import frame as TF
 from splslam_tpu_torch.slam import system as TS
@@ -183,6 +187,21 @@ def test_keyframe_policy_knobs_match_jax(policy):
                                atol=POSE_ATOL)
 
 
+@pytest.mark.parametrize("case", [
+    # tests/test_track_gates.py: (n_in, n_ln_in, using_line, recent, lost)
+    (9, 0, False, False, True), (10, 0, False, False, False), (9, 99, False, False, True),
+    (12, 0, True, False, False), (0, 12, True, False, False), (5, 7, True, False, False),
+    (5, 6, True, False, True), (11, 0, True, False, True), (28, 0, True, False, False),
+    (21, 12, True, False, False), (29, 14, True, True, True), (30, 0, True, True, False),
+    (0, 15, True, True, False), (29, 14, True, False, False),
+])
+def test_track_lost_dual_gate(case):
+    """The point+line lost gate's truth table (reference TrackLocalMapBoth
+    accept cascade, src/Tracking.cc:2097-2108)."""
+    n_in, n_ln, using_line, recent, lost = case
+    assert TS.track_lost(n_in, n_ln, using_line, recent) is lost
+
+
 @pytest.mark.parametrize("using_line", [False, True])
 def test_track_lost_matches_jax(using_line):
     for n_in in range(0, 40, 3):
@@ -204,16 +223,43 @@ def test_reset(runs):
     assert sysm.n_kfs == 0 and len(sysm.trajectory) == 0
 
 
+NO_STAGES = dict(enable_local_mapping=False, **NO_RELOC)
+
+
 @pytest.mark.parametrize("change", [
-    dict(sensor=TS.Sensor.MONOCULAR), dict(sensor=TS.Sensor.RGBD),
-    dict(using_line=True), dict(using_line=True, enable_loop_correction=True),
+    dict(sensor=TS.Sensor.RGBD),
     dict(vocabulary_path="ORBvoc.txt"),
+    dict(using_line=True),                                   # the defaults
+    dict(NO_STAGES, using_line=True, enable_local_mapping=True),
+    dict(NO_STAGES, using_line=True, enable_relocalization=True),
+    dict(NO_STAGES, using_line=True, enable_loop_closing=True),
+    dict(NO_STAGES, using_line=True, enable_loop_correction=True),
+    dict(NO_STAGES, sensor=TS.Sensor.MONOCULAR, using_line=True,
+         enable_local_mapping=True),
 ])
 def test_later_slices_raise(change):
+    """Lines run only with local mapping, relocalization and loop closing
+    off (their line stages are later slices); RGB-D and the text
+    vocabulary are later slices."""
     change = dict(change)
     sensor = change.pop("sensor", TS.Sensor.STEREO)
     with pytest.raises(NotImplementedError):
         TS.System(TS.Settings(**change), sensor, "cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(sensor=TS.Sensor.MONOCULAR),
+    dict(NO_STAGES, sensor=TS.Sensor.MONOCULAR, using_line=True),
+    dict(NO_STAGES, using_line=True),
+])
+def test_mono_and_lines_construct(change):
+    change = dict(change)
+    sensor = change.pop("sensor", TS.Sensor.STEREO)
+    sysm = TS.System(TS.Settings(**change), sensor, "cpu")
+    cap = sysm.settings.line_features if sysm.settings.using_line else 1
+    assert sysm.line_cap == cap == sysm.map.kfs.lseg.shape[1]
+    assert sysm.line_cfg == ("grow", 2, 24.0)
+    assert sysm.get_tracking_state() == TS.TrackingState.NO_IMAGES_YET
 
 
 def test_loop_correction_is_a_setting_not_a_later_slice():
@@ -228,18 +274,63 @@ def test_loop_correction_is_a_setting_not_a_later_slice():
     assert h["loop_corrections"] == 0 and h["loop_guarded"] == 0
 
 
-def test_frame_with_lines_raises():
-    img = torch.zeros((240, 320))
-    with pytest.raises(NotImplementedError, match="line pipeline"):
-        TF.build_frame_stereo(img, img, Camera.create(200, 200, 160, 120, bf=24),
-                              PyramidSpec.create(240, 320, 4, 1.2, 600),
-                              line_capacity=8)
+@pytest.mark.parametrize("backend", ["grow", "fld"])
+def test_frame_with_lines_matches_jax(backend):
+    """build_frame_stereo with a line table (lines from the left image)
+    against the reference's: points and stereo as before, line validity
+    and octaves exact, endpoints within 2e-3 px (tests/test_torch_lines.py)."""
+    from splslam_tpu.slam import frame as JF
+
+    K, bf, frames, _ = make_stereo_sequence(n_frames=1, motion="lateral",
+                                            width=320, height=240, texture="grid")
+    l, r = (np.asarray(x, np.float32) for x in frames[0])
+    jcam = JS.Settings(**settings_kw(K, bf)).camera()
+    tcam = TS.Settings(**settings_kw(K, bf)).camera()
+    spec = PyramidSpec.create(240, 320, 4, 1.2, 600)
+    cfg = (backend, 2, 24.0)
+    jf = jax.device_get(JF.build_frame_stereo(jnp.asarray(l), jnp.asarray(r), jcam,
+                                              spec, line_capacity=32, line_cfg=cfg))
+    tf = TF.build_frame_stereo(torch.from_numpy(l), torch.from_numpy(r), tcam, spec,
+                               line_capacity=32, line_cfg=cfg)
+    np.testing.assert_array_equal(tf.feat.desc.numpy(), np.asarray(jf.feat.desc).view(np.int32))
+    np.testing.assert_allclose(tf.depth.numpy(), np.asarray(jf.depth), atol=1e-4)
+    v = np.asarray(jf.lines.valid)
+    np.testing.assert_array_equal(tf.lines.valid.numpy(), v)
+    np.testing.assert_array_equal(tf.lines.octave.numpy(), np.asarray(jf.lines.octave))
+    np.testing.assert_allclose(tf.lines.seg.numpy()[v], np.asarray(jf.lines.seg)[v], atol=2e-3)
+    assert v.sum() >= 10
+
+
+def test_build_frame_mono_matches_jax():
+    """build_frame_mono with lines and undistortion, against the reference."""
+    from splslam_tpu.slam import frame as JF
+
+    K, bf, frames, _ = make_stereo_sequence(n_frames=1, motion="lateral",
+                                            width=320, height=240, texture="grid")
+    img = np.asarray(frames[0][0], np.float32)
+    kw = dict(settings_kw(K, 0.0), k1=-0.05, k2=0.01)
+    spec = PyramidSpec.create(240, 320, 4, 1.2, 600)
+    jf = jax.device_get(JF.build_frame_mono(jnp.asarray(img), JS.Settings(**kw).camera(),
+                                            spec, undistort=True, with_lines=True,
+                                            line_capacity=32))
+    tf = TF.build_frame_mono(torch.from_numpy(img), TS.Settings(**kw).camera(), spec,
+                             undistort=True, with_lines=True, line_capacity=32)
+    np.testing.assert_array_equal(tf.feat.valid.numpy(), np.asarray(jf.feat.valid))
+    np.testing.assert_allclose(tf.feat.xy.numpy(), np.asarray(jf.feat.xy), atol=1e-3)
+    assert (tf.u_right.numpy() == -1).all() and (tf.depth.numpy() == -1).all()
+    v = np.asarray(jf.lines.valid)
+    np.testing.assert_array_equal(tf.lines.valid.numpy(), v)
+    for f in ("seg", "midpoint", "length"):
+        np.testing.assert_allclose(getattr(tf.lines, f).numpy()[v],
+                                   np.asarray(getattr(jf.lines, f))[v], atol=2e-3)
 
 
 def test_settings_defaults_match_jax():
     for name in ("enable_relocalization", "vocabulary_path", "reloc_min_inliers",
                  "enable_loop_closing", "enable_loop_correction",
-                 "enable_local_mapping", "min_kf_gap", "async_depth"):
+                 "enable_local_mapping", "min_kf_gap", "async_depth",
+                 "using_line", "line_features", "using_lsd", "line_n_levels",
+                 "line_min_length_ratio"):
         assert getattr(TS.Settings(), name) == getattr(JS.Settings(), name), name
 
 

@@ -4,9 +4,15 @@ frames of the forward sequence (keyframes forced every 2 frames so the
 map holds several), its map, tracker state and next frame are pulled to
 numpy, and `splslam_tpu_torch.convert` hands the same state to the port.
 
-Tolerances: landmark ids, inlier masks, counts and window ids exact;
-poses within 1e-4 (float32 sums in another order, and XLA's fused
-multiply-adds); landmark positions within 1e-5."""
+The line branch: `line_projection_match` on synthetic map lines (the
+motion-model and local-window settings), and `assemble_line_window` and
+`track_step` with lines on a monocular map the reference initialized
+from frames 0 and 1 of the grid sequence (its `create_initial_map`),
+tracking frame 2.
+
+Tolerances: landmark and map-line ids, inlier masks, counts and window
+ids exact; poses within 1e-4 (float32 sums in another order, and XLA's
+fused multiply-adds); landmark positions within 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -240,3 +246,178 @@ def test_add_keyframe_step(ref, max_new, depth_limit):
     assert int(jm.n_kfs) == int(ref.map.n_kfs) + 1
     if depth_limit is not None:   # every unmatched stereo point qualifies
         assert int(jm.n_pts) > int(ref.map.n_pts)
+
+
+# ---------------------------------------------------------------------
+# lines
+# ---------------------------------------------------------------------
+def _line_match_inputs(seed):
+    """Q synthetic 3D lines, their projections as the current frame's line
+    features (noisy, some dropped, shuffled), random LBD words with a few
+    flipped bits per true pair."""
+    from splslam_tpu.ops.lines import LineFeatures as JLF
+
+    r = np.random.default_rng(seed)
+    Q, Lc = 48, 40
+    A = np.stack([r.uniform(-2, 2, Q), r.uniform(-1.5, 1.5, Q), r.uniform(3, 8, Q)], 1)
+    B = A + r.normal(0, 0.5, (Q, 3))
+    xyz3 = np.stack([A, 0.5 * (A + B), B], 1).astype(np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = [0.05, -0.02, 0.1]
+    f, c = 200.0, np.array([160.0, 120.0])
+    proj = lambda P: f * (P @ T[:3, :3].T + T[:3, 3])[:, :2] / (P @ T[:3, :3].T + T[:3, 3])[:, 2:] + c
+    seg = np.concatenate([proj(A), proj(B)], 1) + r.normal(0, 0.5, (Q, 4))
+    perm = r.permutation(Q)[:Lc]
+    seg = seg[perm].astype(np.float32)
+    words = r.integers(0, 2 ** 32, (Q, 8), dtype=np.uint64).astype(np.uint32)
+    flip = np.zeros((Q, 256), np.uint8)
+    flip[:, r.choice(256, 6, replace=False)] = 1
+    cur_words = words[perm] ^ np.packbits(flip[perm], axis=1, bitorder="little").view(np.uint32)
+    d = seg[:, 2:] - seg[:, :2]
+    cur = JLF(seg=seg, midpoint=0.5 * (seg[:, :2] + seg[:, 2:]),
+              angle=np.arctan2(d[:, 1], d[:, 0]).astype(np.float32),
+              length=np.linalg.norm(d, axis=1).astype(np.float32),
+              response=np.ones(Lc, np.float32), desc=cur_words,
+              valid=r.random(Lc) > 0.1, octave=np.zeros(Lc, np.int32))
+    avg_len = np.linalg.norm(proj(A) - proj(B), axis=1).astype(np.float32)
+    row_ok = r.random(Q) > 0.1
+    already = r.random(Lc) > 0.8
+    return T, cur, xyz3, words, avg_len, row_ok, already, perm
+
+
+@pytest.mark.parametrize("seed,kw", [(0, {}), (1, {}), (2, dict(perp_r=6.0))])
+def test_line_projection_match(seed, kw):
+    from splslam_tpu.geometry.camera import Camera as JCam
+    from splslam_tpu_torch.ops.lines import LineFeatures as TLF
+
+    T, cur, xyz3, words, avg_len, row_ok, already, perm = _line_match_inputs(seed)
+    cam_kw = dict(fx=200.0, fy=200.0, cx=160.0, cy=120.0, width=320, height=240)
+    jm, jd = JT.line_projection_match(JCam.create(**cam_kw), jnp.asarray(T),
+                                      jax.tree.map(jnp.asarray, cur), jnp.asarray(xyz3),
+                                      jnp.asarray(words), jnp.asarray(avg_len),
+                                      jnp.asarray(row_ok), jnp.asarray(already), **kw)
+    t = lambda a: torch.from_numpy(np.array(a))
+    tm, td = TT.line_projection_match(
+        TCam.create(**cam_kw), t(T), TLF(*[t(np.asarray(x).view(np.int32)
+                                           if np.asarray(x).dtype == np.uint32 else x)
+                                         for x in cur]),
+        t(xyz3), t(words.view(np.int32)), t(avg_len), t(row_ok), t(already), **kw)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    m = tm.numpy()
+    assert (m >= 0).sum() >= 15
+    hit = m >= 0
+    # true pairs: current feature j is map line perm[j]
+    assert (perm[m[hit]] == np.nonzero(hit)[0]).mean() > 0.9
+
+
+class LineRef:
+    """A reference monocular map with map lines, and frame 2 to track."""
+
+
+@pytest.fixture(scope="module")
+def line_ref():
+    from splslam_tpu.slam import mono as JM
+    from splslam_tpu.slam.initializer import two_view_init
+    from splslam_tpu.slam.map import MapState as JMapState
+
+    K, _, frames, _ = make_stereo_sequence(n_frames=3, motion="lateral", width=W,
+                                           height=H, texture="grid")
+    st = JS.Settings(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                     cy=float(K[1, 2]), width=W, height=H, n_features=600,
+                     n_levels=4, max_points=8192, max_keyframes=64,
+                     local_window=M_LOCAL)
+    cam, spec = st.camera(), JS.PyramidSpec.create(H, W, 4, 1.2, 600)
+    build = lambda i: JF.build_frame_mono(jnp.asarray(frames[i][0], jnp.float32), cam,
+                                          spec, with_lines=True, line_capacity=64)
+    f1, f2, f3 = build(0), build(1), build(2)
+    m12, _ = JM.match_for_initialization(f1, f2)
+    m12L, _ = JM.match_lines_for_initialization(f1, f2)
+    N = f1.feat.capacity
+    ok = jnp.concatenate([m12 >= 0, m12L >= 0])
+    res = two_view_init(
+        jax.random.PRNGKey(0), jnp.concatenate([f1.feat.xy, f1.lines.midpoint]),
+        jnp.concatenate([f2.feat.xy[jnp.clip(m12, 0)],
+                         f2.lines.midpoint[jnp.clip(m12L, 0)]]), ok, cam.K,
+        inv_sigma2=jnp.concatenate([jnp.ones((N,)), jnp.full((64,), 1.0 / 9.0)]))
+    assert bool(res.ok)
+    mp, step, _ = JM.create_initial_map(
+        JMapState.empty(8192, 4096, 64, spec.total_capacity, 64), f1, f2, m12,
+        res.R21, res.t21, res.xyz[:N], res.good[:N] & (m12 >= 0), m12L, res.xyz[N:],
+        res.good[N:] & (m12L >= 0), jnp.float32(0.0), jnp.float32(0.1),
+        jnp.int32(0), jnp.int32(1), cam, scale_factor=1.2, n_levels=4)
+    r = LineRef()
+    r.map, r.step, r.frame = jax.device_get((mp, step, f3))
+    r.jcam = cam
+    r.tcam = TCam.create(st.fx, st.fy, st.cx, st.cy, width=W, height=H)
+    r.scales = np.asarray(spec.scales, np.float32)
+    assert (np.asarray(r.step.ll_gid) >= 0).sum() >= 3
+    return r
+
+
+def test_assemble_line_window(line_ref):
+    r = line_ref
+    jw = jax.device_get(JP.assemble_line_window(r.map, r.step.ll_gid, r.step.lm_gid, 256))
+    tw = convert.line_window_to_numpy(TP.assemble_line_window(
+        convert.map_state_from_numpy(r.map, "cpu"),
+        torch.from_numpy(np.array(r.step.ll_gid)),
+        torch.from_numpy(np.array(r.step.lm_gid)), 256))
+    for f in jw._fields:
+        np.testing.assert_array_equal(getattr(tw, f), np.asarray(getattr(jw, f)), err_msg=f)
+    assert (np.asarray(jw.ids) >= 0).sum() >= 3
+
+
+def test_track_step_with_lines(line_ref):
+    r = line_ref
+    s = r.step
+    T_pred = np.array(jnp.asarray(s.velocity) @ jnp.asarray(s.Tcw))
+    jwin = JP.assemble_local_window(r.map, s.lm_gid, M_LOCAL)
+    jlwin = JP.assemble_line_window(r.map, s.ll_gid, s.lm_gid, 256)
+    jr = JT.track_step(
+        r.jcam, jnp.asarray(r.scales), r.frame, s.frame.feat.xy, s.frame.feat.octave,
+        s.frame.feat.angle, s.frame.feat.bits, s.lm_xyz, s.lm_gid, jnp.asarray(T_pred),
+        jwin, s.frame.lines, s.ll_gid, s.ll_xyz3, s.ll_len, jlwin,
+        scale_factor=1.2, n_levels=4)
+    ts = convert.step_state_from_numpy(s, "cpu")
+    tr = TT.track_step(
+        r.tcam, torch.from_numpy(r.scales), convert.frame_from_numpy(r.frame, "cpu"),
+        ts.frame.feat.octave, ts.frame.feat.angle, ts.frame.feat.desc, ts.lm_xyz,
+        ts.lm_gid, torch.from_numpy(T_pred),
+        convert.local_window_from_numpy(jax.device_get(jwin), "cpu"),
+        last_lines=ts.frame.lines, last_ll_gid=ts.ll_gid, last_ll_xyz3=ts.ll_xyz3,
+        last_ll_len=ts.ll_len,
+        lwin=convert.line_window_from_numpy(jax.device_get(jlwin), "cpu"),
+        scale_factor=1.2, n_levels=4)
+    for f in ("lm_gid", "inlier", "n_mm_matches", "n_inliers", "visible_ids",
+              "found_ids", "ll_gid", "ln_inlier", "n_ln_inliers"):
+        np.testing.assert_array_equal(getattr(tr, f).numpy(),
+                                      np.asarray(getattr(jr, f)), err_msg=f)
+    np.testing.assert_allclose(tr.Tcw.numpy(), np.asarray(jr.Tcw), atol=1e-4)
+    assert int(jr.n_inliers) > 30 and int(jr.n_ln_inliers) >= 1
+
+
+def test_update_point_and_line_stats(line_ref):
+    """The counters add over repeated ids; the line length average is a
+    scatter-set at clip(id, 0) whose last row wins (`-1` rows write slot 0
+    its own value back), as the reference's XLA scatter."""
+    from splslam_tpu.slam import map as JMap
+
+    r = line_ref
+    rng = np.random.default_rng(9)
+    n_l = int(r.map.n_lns)
+    ids = rng.integers(-1, max(n_l, 2), 48).astype(np.int32)
+    ids[:4] = [0, -1, 0, 1]
+    vis = rng.integers(-1, max(n_l, 2), 64).astype(np.int32)
+    flen = rng.uniform(10, 90, 48).astype(np.float32)
+    pidx = rng.integers(-1, 200, 300).astype(np.int32)
+    pv, pf = rng.random(300) > 0.3, rng.random(300) > 0.5
+    jm = jax.device_get(JMap.update_line_stats(r.map, vis, ids, flen))
+    jm = jax.device_get(JMap.update_point_stats(jm, pidx, pv, pf))
+    tm = TMap.update_line_stats(fresh_map(r), torch.from_numpy(vis),
+                                torch.from_numpy(ids), torch.from_numpy(flen))
+    tm = convert.map_state_to_numpy(TMap.update_point_stats(
+        tm, torch.from_numpy(pidx), torch.from_numpy(pv), torch.from_numpy(pf)))
+    for grp, f in (("lns", "n_visible"), ("lns", "n_found"), ("lns", "avg_len2d"),
+                   ("pts", "n_visible"), ("pts", "n_found")):
+        np.testing.assert_array_equal(getattr(getattr(tm, grp), f),
+                                      np.asarray(getattr(getattr(jm, grp), f)),
+                                      err_msg=f"{grp}.{f}")
