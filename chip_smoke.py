@@ -94,7 +94,33 @@ Phases, each fatal on failure:
      ablation: its state and lost frames), and the low-texture two-view
      init trials of bench_components.py (10 seeds, with and without
      lines), whose success counts print beside the JAX package's record
-     (BENCH_HEADLINES.json: 10/10 with lines, 0/10 without).
+     (BENCH_HEADLINES.json: 10/10 with lines, 0/10 without);
+ 10. point+line SLAM with the back end on: phase 9's 72 frames at the same
+     configuration with the JAX package's defaults (local mapping with
+     its line stages, relocalization and loop detection on, correction
+     off) and a keyframe every 5 frames (bench_mono.py's min_kf_gap of
+     20 was set for a run without mapping), `track_mono` one frame at a
+     time: state OK with no frame lost, lines created by mapping,
+     `mapping_state_revert` 0, `mapping_guarded` at most LINE_GUARD_GATE
+     a step (the dual BA zeroes camera steps on most of its line-only
+     iterations, as the JAX package does: its rate on
+     tests/test_torch_mono_lines.py's run plus the slack that test holds
+     the port to; phase 5's max(3, steps // 25) holds for points), one
+     B = 1 launch per frame. Prints the init,
+     keyframes, mapping
+     steps, map points and lines (the init's, after mapping, their
+     median n_obs), the median line inliers a frame beside phase 9's, the
+     Sim3-aligned ATE, `health()` and the guarded iterations of each BA
+     pass, ms/frame (median, p90) and ms per line
+     mapping step (synced around `on_keyframe`), and one step's device
+     kernels and idle share. Then, on the final map: `run_global_ba(
+     rounds=1, with_lines=True)` (ms, lines adopted; poses and lines
+     finite); the last line mapping step again on the card and on the
+     CPU from identical copies (the integer tables after cull,
+     triangulate and fuse equal, and those of the whole step); and the
+     map saved, loaded into a fresh System and frame 40 relocalized with
+     lines on (at least `reloc_min_inliers` inliers; the line inliers and
+     the Sim3-aligned position error print).
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -355,7 +381,7 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: main path failed: {failed}")
     imgs = torch.from_numpy(np.stack(frames[-1]).astype(np.uint8)).cuda()
     n_dev, dev_ms, orb_ms = device_kernels(lambda: build_frame_stereo(
-        imgs[0].float(), imgs[1].float(), sysm.cam, sysm.spec))
+        imgs[0].float(), imgs[1].float(), sysm.cam, sysm.spec, sysm.scales))
     print(f"build_frame_stereo: {n_dev} device kernels (torch.profiler, CUDA "
           f"activity), {dev_ms:.3f} ms device time, orb_describe {orb_ms:.5f} ms")
 
@@ -363,7 +389,8 @@ def main() -> None:
     reloc_launches = reloc_phase(st, frames, gt, card, map_frame_ms)
     loop_launches, loop_sys, scene = loop_phase(card)
     live_launches = correction_phase(loop_sys, scene, card)
-    mono_launches = mono_phase(card)
+    mono_launches, mono_ln_in = mono_phase(card)
+    backend_launches = line_backend_phase(card, mono_ln_in)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
@@ -371,7 +398,7 @@ def main() -> None:
         "source": "splslam_tpu_torch/csrc/orb_describe.cu",
         "replaces": "splslam_tpu/ops/orb_pallas.py:172",
         "launches": (launches + map_launches + reloc_launches + loop_launches
-                     + live_launches + mono_launches),
+                     + live_launches + mono_launches + backend_launches),
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -897,6 +924,10 @@ def correction_phase(base, scene, card, device="cuda"):
 
 MONO_W, MONO_H = 640, 480
 MONO_FRAMES = 72   # bench_mono.py runs 120
+# Guarded BA iterations a line mapping step: the JAX package's count on
+# tests/test_torch_mono_lines.py's run (36 in 3 steps), plus the slack a
+# step that the test holds the port's count to (GUARD_SLACK there).
+LINE_GUARD_GATE = 36 // 3 + 3
 
 
 def mono_settings(Settings, K, using_line: bool):
@@ -1111,7 +1142,253 @@ def mono_phase(card, device="cuda"):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: mono path failed: {failed}")
+    return launches, float(np.median(ln_in)) if ln_in else 0.0
+
+
+def _sim3_fit(p_est, p_gt):
+    """(scale, R, mean_est, mean_gt) mapping estimated positions onto the
+    ground truth (Umeyama, as `ate_rmse(align_scale=True)`)."""
+    import numpy as np
+
+    mu_e, mu_g = p_est.mean(0), p_gt.mean(0)
+    E, G = p_est - mu_e, p_gt - mu_g
+    U, sv, Vt = np.linalg.svd(E.T @ G)
+    S = np.eye(3)
+    if np.linalg.det(U @ Vt) < 0:
+        S[2, 2] = -1
+    return float(np.trace(np.diag(sv) @ S) / max(np.sum(E * E), 1e-12)), \
+        Vt.T @ S @ U.T, mu_e, mu_g
+
+
+def line_backend_phase(card, phase9_ln_in, device="cuda", view=40):
+    """Phase 10: point+line SLAM with the back end on. Returns the kernel
+    launches of its main run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.optim import ba as BA
+    from splslam_tpu_torch.slam import mapping_ops as MO
+    from splslam_tpu_torch.slam import reloc as R
+    from splslam_tpu_torch.slam.frame import build_frame_mono
+    from splslam_tpu_torch.slam.map import KeyFrames
+    from splslam_tpu_torch.slam.pipeline import StepState
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    t_phase = time.perf_counter()
+    K, _, frames, gt = make_stereo_sequence(
+        n_frames=MONO_FRAMES, width=MONO_W, height=MONO_H, fx=520.0, motion="oscillate",
+        seed=4, osc_amp=0.5, texture="grid")
+    st = dataclasses.replace(
+        mono_settings(Settings, K, True), enable_local_mapping=True,
+        enable_relocalization=True, enable_loop_closing=True, force_kf_every=5)
+    sysm = System(st, Sensor.MONOCULAR, device)
+    map_ms, last = [], {}
+    lines_before_mapping = []
+    run_step = MO.mapping_step
+    run_solve = BA.ba_solve
+    # the guarded iterations of the dual BA's three passes (points, lines,
+    # joint: ba_solve_arbitrated's call order), kept on the device
+    guarded = []
+
+    def counted_solve(*args, **kw):
+        res = run_solve(*args, **kw)
+        guarded.append(res.n_guarded)
+        return res
+
+    def recorded_step(m, kf, *args, **kw):
+        last.update(kf=kf, kw=dict(kw))
+        BA.ba_solve = counted_solve
+        try:
+            return run_step(m, kf, *args, **kw)
+        finally:
+            BA.ba_solve = run_solve
+
+    on_keyframe = sysm.mapper.on_keyframe
+
+    def timed_on_keyframe(kf):
+        n = sysm.mapper.n_steps
+        # the map entering the step, copied (and its lines counted) outside
+        # the timed window
+        entering = sysm.map.to(device)
+        if not lines_before_mapping:
+            lines_before_mapping.append(int(entering.lns.valid.sum()))
+        _sync(device)
+        t0 = time.perf_counter()
+        on_keyframe(kf)
+        _sync(device)
+        if sysm.mapper.n_steps > n:
+            map_ms.append((time.perf_counter() - t0) * 1e3)
+            last["state"] = entering
+
+    sysm.mapper.on_keyframe = timed_on_keyframe
+    MO.mapping_step = recorded_step
+    try:
+        OK.orb_describe.launches = 0
+        times, ln_in = _mono_run(sysm, frames, device)
+        launches = OK.orb_describe.launches
+    finally:
+        MO.mapping_step = run_step
+        del sysm.mapper.on_keyframe
+    state = sysm.get_tracking_state()
+    n_lost = sum(e.lost for e in sysm.trajectory)
+    i_init = int(round(sysm.trajectory[1].ts * 30.0)) if len(sysm.trajectory) > 1 else -1
+    idx = [int(round(e.ts * 30.0)) for e in sysm.trajectory if not e.lost]
+    est = sysm.poses()
+    ate = ate_rmse(est, gt[idx], align_scale=True)
+    health = sysm.health()
+    n_steps = sysm.mapper.n_steps
+    lv = sysm.map.lns.valid
+    n_lns = int(lv.sum())
+    n_init = lines_before_mapping[0] if lines_before_mapping else n_lns
+    med_obs = float(sysm.map.lns.n_obs[lv].float().median()) if n_lns else 0.0
+    tail = times[i_init + 10:] if i_init >= 0 else times
+    print(f"mono+lines, back end on: {len(frames)} frames of {MONO_W}x{MONO_H}, init at "
+          f"frame {i_init}, state {state.name}, lost {n_lost}, keyframes {sysm.n_kfs}, "
+          f"mapping steps {n_steps}, map points {int(sysm.map.pts.valid.sum())}, map "
+          f"lines {n_init} from the init -> {n_lns} after mapping ({int(sysm.map.n_lns)} "
+          f"created in all), median line n_obs {med_obs:.1f}, median line inliers/"
+          f"frame {float(np.median(ln_in)) if ln_in else 0.0} (phase 9, mapping off: "
+          f"{phase9_ln_in}), Sim3-aligned ATE {ate:.5f}, kernel launches {launches}")
+    by_pass = [int(sum(int(g) for g in guarded[i::3])) for i in range(3)]
+    print(f"health {health}; guarded BA iterations by pass of the dual BA: points "
+          f"{by_pass[0]}, lines {by_pass[1]}, joint {by_pass[2]}")
+    print(f"track_mono (lines, back end on): median {np.median(tail):.2f} ms/frame, "
+          f"p90 {np.percentile(tail, 90):.2f} over frames {i_init + 10}-"
+          f"{len(frames) - 1}, keyframe frames included, synced; line mapping step "
+          f"{_ms(map_ms)} synced around on_keyframe, on {card}")
+    checks = {
+        "state OK": state == TrackingState.OK,
+        "no frame lost": n_lost == 0,
+        "poses finite": bool(np.isfinite(est).all()),
+        "mapping created lines": int(sysm.map.n_lns) > n_init and n_steps >= 1,
+        "mapping_state_revert == 0": health["mapping_state_revert"] == 0,
+        # the dual BA zeroes camera steps on most iterations of its line-only
+        # pass where a camera sees few lines, as the JAX package does: held
+        # to the reference's rate plus the slack that
+        # tests/test_torch_mono_lines.py pins the port to
+        f"mapping_guarded <= {LINE_GUARD_GATE} a step":
+            health["mapping_guarded"] <= LINE_GUARD_GATE * n_steps,
+        "one B=1 launch per frame built": launches == len(frames),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: line back end failed: {failed}")
+
+    # one line mapping step's device kernels and idle share
+    kf, kw = last["kf"], last["kw"]
+    m_prof = last["state"].to(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    run_step(last["state"].to(device), kf, sysm.cam, sysm.scales, **kw)
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    n_dev, dev_ms, _ = device_kernels(lambda: run_step(m_prof, kf, sysm.cam, sysm.scales,
+                                                       **kw))
+    print(f"line mapping step (kf {kf}): {step_ms:.2f} ms synced; under "
+          f"torch.profiler {n_dev} device kernels, {dev_ms:.3f} ms device time, idle "
+          f"{1.0 - dev_ms / step_ms:.3f} of the synced ms, on {card}")
+
+    # global BA with line edges over the final map
+    ll = sysm.map.kfs.ll_idx
+    obs = ((ll >= 0) & sysm.map.kfs.lvalid & sysm.map.kfs.valid[:, None]
+           & lv[ll.clamp(min=0).long()])
+    cnt = torch.bincount(ll[obs].long(), minlength=lv.shape[0])
+    n_adopt = int((lv & (cnt >= 2)).sum())
+    lc = sysm.loop_closer
+    g0 = lc.n_guarded
+    _sync(device)
+    t0 = time.perf_counter()
+    res = lc.run_global_ba(rounds=1, with_lines=True)
+    _sync(device)
+    gba_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(sysm.map.kfs.Tcw).all()
+                  and torch.isfinite(sysm.map.lns.xyz[lv]).all())
+    ate_gba = ate_rmse(sysm.poses_reconstructed(), gt[idx], align_scale=True)
+    print(f"run_global_ba(rounds=1, with_lines=True): {gba_ms:.2f} ms synced, "
+          f"{sysm.n_kfs} keyframes, {n_lns} map lines, {n_adopt} adopted (>= 2 live "
+          f"observations), n_guarded {lc.n_guarded - g0}, n_state_revert "
+          f"{int(res.n_state_revert)}, finite {finite}, ATE of the reconstructed "
+          f"frames {ate_gba:.5f}, on {card}")
+
+    # the last line mapping step on the card and on the CPU
+    out = {}
+    for dev in (device, "cpu"):
+        m = last["state"].to(dev)
+        m = m._replace(kfs=KeyFrames(*[x[:kw["k_bucket"]] for x in m.kfs]))
+        m, _ = MO.map_upkeep(m, kf, sysm.cam, sysm.scales.to(dev), st.scale_factor,
+                             st.n_levels, kw["th_obs"], True)
+        ints = _line_ints(m)
+        whole, _ = run_step(last["state"].to(dev), kf, sysm.cam, sysm.scales.to(dev),
+                            **kw)
+        out[dev] = (ints, _line_ints(whole))
+    (ug, wg), (uc, wc) = out[device], out["cpu"]
+    up_diff = {k: int((ug[k] != uc[k]).sum()) for k in ug if int((ug[k] != uc[k]).sum())}
+    step_diff = {k: int((wg[k] != wc[k]).sum()) for k in wg if int((wg[k] != wc[k]).sum())}
+    print(f"line mapping step card vs CPU (kf {kf}): integer entries differing after "
+          f"cull/triangulate/fuse {up_diff or 'none'}, after the whole step "
+          f"{step_diff or 'none'}")
+
+    # save, load into a fresh System, relocalize a frame with lines on
+    attempts = []
+    run_attempt = R.reloc_attempt
+
+    def counted_attempt(*args, **kw):
+        o = run_attempt(*args, **kw)
+        attempts.append((int(o[1]), int((o[3] >= 0).sum())))
+        return o
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/map.npz"
+        sysm.save_map(path)
+        loaded = System(st, Sensor.MONOCULAR, device)
+        loaded.load_map(path)
+    img = torch.from_numpy(frames[view][0].astype(np.uint8)).to(device)
+    frame = build_frame_mono(img.float(), loaded.cam, loaded.spec, with_lines=True,
+                             line_capacity=loaded.line_cap, line_cfg=loaded.line_cfg)
+    R.reloc_attempt = counted_attempt
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        ok = loaded._try_relocalize(StepState.fresh(frame, torch.eye(4, device=device)),
+                                    view / 30.0)
+        _sync(device)
+        reloc_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        R.reloc_attempt = run_attempt
+    n_in, n_ln = attempts[-1] if attempts else (0, 0)
+    c, Rg, mu_e, mu_g = _sim3_fit(est[:, :3, 3], gt[idx][:, :3, 3])
+    pos = c * Rg @ (np.linalg.inv(loaded.last_Tcw_np)[:3, 3] - mu_e) + mu_g
+    pos_err = float(np.linalg.norm(pos - gt[view][:3, 3]))
+    print(f"loaded map, frame {view} relocalized {ok} against keyframe "
+          f"{loaded.ref_kf}: {n_in} inliers (gate {st.reloc_min_inliers}), {n_ln} line "
+          f"inliers, Sim3-aligned position error {pos_err:.5f}, attempts "
+          f"{attempts}, {reloc_ms:.1f} ms, on {card}")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    checks = {
+        "global BA: poses and lines finite": finite,
+        "global BA: no revert": int(res.n_state_revert) == 0,
+        "line stages integer-equal card vs CPU": not up_diff,
+        "line mapping step integer-equal card vs CPU": not step_diff,
+        "loaded map relocalizes": ok and n_in >= st.reloc_min_inliers,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: line back end failed: {failed}")
     return launches
+
+
+def _line_ints(m):
+    """The integer tables of a map (points, lines, keyframe rows) on the
+    host."""
+    t = {"n_pts": m.n_pts, "n_lns": m.n_lns, "pts.valid": m.pts.valid,
+         "pts.n_obs": m.pts.n_obs, "kfs.lm_idx": m.kfs.lm_idx, "kfs.valid": m.kfs.valid,
+         "lns.valid": m.lns.valid, "lns.n_obs": m.lns.n_obs,
+         "lns.first_kf": m.lns.first_kf, "kfs.ll_idx": m.kfs.ll_idx}
+    return {k: v.to("cpu", copy=True) for k, v in t.items()}
 
 
 if __name__ == "__main__":

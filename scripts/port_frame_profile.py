@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import sys
 import time
@@ -69,8 +70,11 @@ def main() -> None:
         times.append((time.perf_counter() - t0) * 1e3)
     launches = OK.orb_describe.launches / len(times)
     imgs = torch.from_numpy(np.stack(frames[-1]).astype(np.uint8)).cuda()
+    # trees before the scale table became an argument built it themselves
+    with_scales = "scales" in inspect.signature(build_frame_stereo).parameters
     build = smoke.device_kernels(lambda: build_frame_stereo(
-        imgs[0].float(), imgs[1].float(), sysm.cam, sysm.spec))
+        imgs[0].float(), imgs[1].float(), sysm.cam, sysm.spec,
+        *((sysm.scales,) if with_scales else ())))
     track = smoke.device_kernels(
         lambda: sysm.track_stereo(*frames[-1], len(frames) * 0.1))
     print(json.dumps({

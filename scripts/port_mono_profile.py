@@ -15,8 +15,9 @@ frame. A stage's time includes the host work of launching it and one
 synchronize on each side, so the stages do not add up to the frame.
 Then, over one more tracked frame, the device activities and their
 device ms (torch.profiler, CUDA activity), and the host syncs that frame
-makes (`torch.cuda.set_sync_debug_mode("warn")`, warnings counted by the
-source line that raised them).
+makes (`torch.cuda.set_sync_debug_mode("warn")`, counted by
+scripts/port_sync_probe.py's `sync_sites`: the port's source lines on the
+stack of each).
 Configuration and timing helpers come from `chip_smoke.py`.
 """
 
@@ -26,11 +27,12 @@ import argparse
 import json
 import sys
 import time
-import warnings
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
+
+from port_sync_probe import sync_sites  # noqa: E402
 
 
 def main() -> None:
@@ -98,20 +100,7 @@ def main() -> None:
     img = frames[-1][0]
     ts = (len(frames) - 1) / 30.0
     n_dev, dev_ms, orb_ms = smoke.device_kernels(lambda: sysm.track_mono(img, ts))
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            sysm.track_mono(img, ts + 1 / 30.0)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = {}
-    for w in caught:
-        if "called a synchronizing" in str(w.message):
-            f = Path(w.filename).resolve()
-            site = f"{f.relative_to(HERE) if f.is_relative_to(HERE) else f}:{w.lineno}"
-            syncs[site] = syncs.get(site, 0) + 1
+    syncs = sync_sites(lambda: sysm.track_mono(img, ts + 1 / 30.0))
     print(json.dumps({
         "card": smoke.card_line(),
         "lines": not args.no_lines,

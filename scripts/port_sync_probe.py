@@ -8,9 +8,47 @@ and prints one line a call: "no sync", or "SYNC" when the mode raised
 (the mode is a prototype and may miss some synchronizations). The
 shapes are relocalization's: 192 hypotheses of 12x12 (PnP DLT) and of
 3x3 (polar factor, Horn).
+
+`sync_sites(fn)` lists the port's source lines that make a call wait
+for the card (scripts/port_mono_profile.py uses it for a tracked frame).
 """
 
 from __future__ import annotations
+
+import os
+import traceback
+import warnings
+
+
+def sync_sites(fn) -> dict[str, int]:
+    """Run `fn()` once under `torch.cuda.set_sync_debug_mode("warn")` and
+    count its host syncs by where they come from: the innermost three
+    `splslam_tpu_torch` frames on the Python stack of each warning
+    ("file:line <- caller <- caller"), or the warning's own line when
+    the port is not on the stack."""
+    import torch
+
+    found: dict[str, int] = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if "splslam_tpu_torch" in f.filename]
+        key = " <- ".join(f"{os.path.relpath(f.filename)}:{f.lineno}"
+                          for f in reversed(frames[-3:])) or f"{filename}:{lineno}"
+        found[key] = found.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return found
 
 
 def main() -> None:

@@ -8,6 +8,10 @@ solves with SVDs; these are the same quantities without them:
 - `nullspace_vector`: the right singular vector of the smallest singular
   value of square matrices, by inverse iteration on A^T A through one LU
   of A (float64);
+- `smallest_singular_vector`: the same vector for small matrices from a
+  cyclic Jacobi eigen-decomposition of A^T A (float64), which converges
+  also when the two smallest singular values lie close together (where
+  inverse iteration converges slowly);
 - `svd3`: a full SVD of 3x3 matrices, M = U diag(s) V^T, from a cyclic
   Jacobi eigen-decomposition of M^T M (float64): V from the
   eigenvectors, u_i = M v_i / s_i, the third column completed by a cross
@@ -21,17 +25,16 @@ from __future__ import annotations
 
 import torch
 
-_PAIRS = ((0, 1), (0, 2), (1, 2))
-
-
-def _jacobi_eig3(S: torch.Tensor, sweeps: int = 6):
-    """Symmetric [...,3,3] -> (eigenvalues [...,3] descending, eigenvectors
-    as columns [...,3,3]), by `sweeps` cyclic Jacobi sweeps."""
+def _jacobi_eig(S: torch.Tensor, sweeps: int = 6):
+    """Symmetric [...,n,n] -> (eigenvalues [...,n] descending, eigenvectors
+    as columns [...,n,n]), by `sweeps` cyclic Jacobi sweeps."""
+    n = S.shape[-1]
     A = S
-    V = torch.eye(3, dtype=S.dtype, device=S.device).expand(S.shape).clone()
-    eye = torch.eye(3, dtype=S.dtype, device=S.device)
+    V = torch.eye(n, dtype=S.dtype, device=S.device).expand(S.shape).clone()
+    eye = torch.eye(n, dtype=S.dtype, device=S.device)
+    pairs = [(p, q) for p in range(n) for q in range(p + 1, n)]
     for _ in range(sweeps):
-        for p, q in _PAIRS:
+        for p, q in pairs:
             apq = A[..., p, q]
             zero = apq == 0
             tau = ((A[..., q, q] - A[..., p, p])
@@ -63,7 +66,7 @@ def svd3(M: torch.Tensor):
     and U, V orthogonal (rank 2 and lower included). Singular vectors of
     repeated singular values are one valid choice among many."""
     Md = M.double()
-    w, V = _jacobi_eig3(Md.transpose(-1, -2) @ Md)
+    w, V = _jacobi_eig(Md.transpose(-1, -2) @ Md)
     s = torch.sqrt(torch.clamp(w, min=0.0))
     MV = Md @ V                                   # columns s_i u_i
     v1, v2 = V[..., :, 0], V[..., :, 1]
@@ -110,3 +113,12 @@ def nullspace_vector(A: torch.Tensor, iters: int = 8) -> torch.Tensor:
                             min=1e-300)
     ok = torch.all(torch.isfinite(x), dim=-2, keepdim=True)
     return torch.where(ok, x, x0)[..., 0].to(A.dtype)
+
+
+def smallest_singular_vector(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
+    """[...,n,n] (n small) -> [...,n] unit vectors: the right singular
+    vector of the smallest singular value, up to sign: the last
+    eigenvector of A^T A, by `sweeps` cyclic Jacobi sweeps in float64."""
+    Ad = A.double()
+    _, V = _jacobi_eig(Ad.transpose(-1, -2) @ Ad, sweeps)
+    return V[..., :, -1].to(A.dtype)

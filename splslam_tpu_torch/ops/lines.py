@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from splslam_tpu_torch.ops.consts import device_const
 from splslam_tpu_torch.ops.match import float_mod
 from splslam_tpu_torch.ops.orb_kernel import pack_bits
 from splslam_tpu_torch.ops.topk import argmax_topk, stable_top
@@ -122,17 +123,9 @@ def _const_np(key: tuple) -> np.ndarray:
     raise KeyError(kind)
 
 
-_DEV_CONST: dict = {}
-
-
 def _const(key: tuple, device) -> torch.Tensor:
     """A small constant table, sent to each device once."""
-    k = (key, str(device))
-    t = _DEV_CONST.get(k)
-    if t is None:
-        t = torch.from_numpy(_const_np(key)).to(device)
-        _DEV_CONST[k] = t
-    return t
+    return device_const(("lines",) + key, device, lambda: _const_np(key))
 
 
 def _linspace(a: float, b: float, n: int, device) -> torch.Tensor:

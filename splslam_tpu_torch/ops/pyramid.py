@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from splslam_tpu_torch.ops.consts import device_const
+
 
 class PyramidSpec(NamedTuple):
     """Static pyramid geometry for one camera resolution."""
@@ -54,20 +56,14 @@ class PyramidSpec(NamedTuple):
         return sum(self.budgets)
 
 
-_LERP: dict = {}
-
-
 def _lerp_table(n_in: int, n_out: int, device):
     """(first source index [n_out] int64, weight of the second [n_out]
-    f32) on `device`, sent there once per size pair: copying a pageable
-    host array to the card makes the host wait."""
-    key = (n_in, n_out, str(device))
-    if key not in _LERP:
+    f32) on `device`, sent there once per size pair."""
+    def make():
         pos = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
         i0 = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 2)
-        _LERP[key] = (torch.from_numpy(i0).to(device),
-                      torch.from_numpy((pos - i0).astype(np.float32)).to(device))
-    return _LERP[key]
+        return i0, (pos - i0).astype(np.float32)
+    return device_const(("lerp", n_in, n_out), device, make)
 
 
 def resize_bilinear(image: torch.Tensor, hw_out: tuple[int, int]) -> torch.Tensor:

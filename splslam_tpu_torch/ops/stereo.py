@@ -38,7 +38,8 @@ def masked_median(values: torch.Tensor, mask: torch.Tensor,
     """Median of values[mask] without a data-dependent shape."""
     n = torch.sum(mask)
     s = torch.sort(torch.where(mask, values, fill)).values
-    return s[torch.clamp(n // 2, 0, values.shape[0] - 1)]
+    # a 1-d index gathers on the device (a 0-dim one is read back)
+    return s[torch.clamp(n // 2, 0, values.shape[0] - 1)[None]][0]
 
 
 def _sample_cols(centers, s, offs, W: int):

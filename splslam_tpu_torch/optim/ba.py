@@ -21,7 +21,7 @@ re-classification of the edges between rounds.
 The LM accept/reject, the damping schedule and every guard are
 `torch.where` selections on the device: the solve never reads a value
 back to the host. Everything is float32; keep TF32 off on a GPU. The
-global solver `ba_solve_pcg` takes points only.
+global solver `ba_solve_pcg` takes the same point and line edges.
 """
 
 from __future__ import annotations
@@ -29,10 +29,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from splslam_tpu_torch.geometry import se3
 from splslam_tpu_torch.geometry.camera import Camera
+from splslam_tpu_torch.ops.consts import device_const
 
 
 def _triu_maps(n: int):
@@ -49,6 +51,15 @@ def _triu_maps(n: int):
 
 _TRIU6, _FULL6 = _triu_maps(6)
 _TRIU3, _FULL3 = _triu_maps(3)
+
+
+def _index(lst: list, device) -> torch.Tensor:
+    """A constant index list as a tensor on `device`, sent there once: a
+    Python list indexing a card tensor is copied to the card on every
+    call, and that copy makes the host wait."""
+    return device_const(("index", tuple(lst)), device,
+                        lambda: np.asarray(lst, np.int64))
+
 
 CHI2_MONO = 5.991    # 2-dof 95% (reference Optimizer.cc:2591)
 CHI2_STEREO = 7.815  # 3-dof 95% (reference Optimizer.cc:2592)
@@ -298,6 +309,8 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
     gates = _gates(p)
     gate, huber, joint = gates
     eye3 = torch.eye(3, device=dev)
+    triu6, full6 = _index(_TRIU6, dev), _index(_FULL6, dev)
+    triu3, full3 = _index(_TRIU3, dev), _index(_FULL3, dev)
 
     # Every per-edge block goes into one (camera band, landmark) cell:
     # free cameras are bands 0..Cf-1, everything else (fixed, frozen,
@@ -331,15 +344,15 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
         Hpp_e = _bsum(J_p[:, :, :, None] * w[:, None, None, None],
                       J_p[:, :, None, :], 1)
         Hcp_e = _bsum(Jcw[:, :, :, None], J_p[:, :, None, :], 1)
-        payload = torch.cat([Hcc_e.reshape(-1, 36)[:, _TRIU6], g_c,
-                             Hpp_e.reshape(-1, 9)[:, _TRIU3], g_p,
+        payload = torch.cat([Hcc_e.reshape(-1, 36)[:, triu6], g_c,
+                             Hpp_e.reshape(-1, 9)[:, triu3], g_p,
                              Hcp_e.reshape(-1, 18)], dim=-1)     # [E,54]
         acc = _sum_cells(cells, payload).reshape(Cf + 1, L, 54)
         acc_c = torch.sum(acc[:Cf, :, :27], dim=1)
-        Hcc = acc_c[:, _FULL6].reshape(Cf, 6, 6)
+        Hcc = acc_c[:, full6].reshape(Cf, 6, 6)
         bc = acc_c[:, 21:]
         acc_p = torch.sum(acc[:, :, 27:36], dim=0)
-        Hpp = acc_p[:, _FULL3].reshape(L, 3, 3)
+        Hpp = acc_p[:, full3].reshape(L, 3, 3)
         bp = acc_p[:, 6:]
         W2 = acc[:Cf, :, 36:].reshape(Cf, L, 6, 3).permute(0, 2, 1, 3) \
             .reshape(Cf * 6, L * 3)
@@ -511,19 +524,19 @@ def ba_solve_pcg(cam: Camera, p: BAProblem, *, rounds: int = 2,
     always are. `rounds` x `gn_iters` damped Gauss-Newton steps (no accept
     test; the two trust regions are the brake), each solved by `cg_iters`
     Jacobi-preconditioned CG iterations of fixed count, with a chi2
-    re-classification of the edges after every round. Nothing is read
-    back to the host.
+    re-classification of the edges after every round (a line endpoint
+    edge by its pair's joint chi2, see `_gates`). Nothing is read back
+    to the host.
 
-    The segment sums are `index_add_` over the unsorted edge table: on
-    CUDA colliding rows are added in launch order, so two runs differ by
-    float noise."""
-    if p.e_coef is not None:
-        raise NotImplementedError("line edges in global BA: later slice")
+    The segment sums are `index_add_` over the unsorted edge table (point
+    and line edges in one table: the line block is camera-major on its
+    own, so the whole is not sorted by camera): on CUDA colliding rows
+    are added in launch order, so two runs differ by float noise."""
     C = p.Tcw.shape[0]
     L = p.xyz.shape[0]
     dev = p.Tcw.device
     gates = _gates(p)
-    gate = gates[0]
+    gate, huber, joint = gates
     free_f = p.cam_free.to(torch.float32)[:, None]
     eye3 = torch.eye(3, device=dev)
     eye6 = torch.eye(6, device=dev)
@@ -542,7 +555,7 @@ def ba_solve_pcg(cam: Camera, p: BAProblem, *, rounds: int = 2,
 
     def gn_step(Tcw_all, xyz_all, active):
         r, J_c, J_p, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
-        w = _huber_weight(chi2, gate) * p.e_inv_sigma2 \
+        w = _huber_weight(chi2, huber) * p.e_inv_sigma2 \
             * (active & z_ok).to(torch.float32)
         wf = w * e_free
         Jcw = J_c * wf[:, None, None]
@@ -644,5 +657,5 @@ def ba_solve_pcg(cam: Camera, p: BAProblem, *, rounds: int = 2,
             ng = ng + n_bad
             ngl = ngl + n_bad_lm
         _, _, _, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
-        active = p.e_ok & (chi2 <= gate) & z_ok
+        active = p.e_ok & (joint(chi2, p.e_ok & z_ok) <= gate) & z_ok
     return _finish(cam, p, gates, Tcw_all, xyz_all, ng, ngl)

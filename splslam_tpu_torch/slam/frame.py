@@ -13,8 +13,6 @@ from splslam_tpu_torch.ops.orb import OrbFeatures, extract_orb, extract_orb_pair
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
 from splslam_tpu_torch.ops.stereo import stereo_match
 
-# the line stages not ported yet (mapping, relocalization, loop correction)
-LINES_LATER = "line pipeline: later slice"
 # (backend, n_octaves, min_length) of the line detector: the reference's
 # System.usingLsdFeature, Lineextractor.nLevels and min_line_length_ratio
 LINE_CFG = ("grow", 2, 24.0)
@@ -68,6 +66,7 @@ def build_frame_stereo(
     img_right: torch.Tensor,
     cam: Camera,
     spec: PyramidSpec,
+    scales: torch.Tensor,
     line_capacity: int = 1,
     line_cfg: tuple = LINE_CFG,
 ) -> FrameData:
@@ -75,10 +74,10 @@ def build_frame_stereo(
     launch on a GPU) + row-constrained stereo matching with subpixel
     disparity (reference Frame ctor src/Frame.cc:99-155). The reference
     keeps stereo point-only (src/Tracking.cc:321-323); a line_capacity > 1
-    extracts lines from the left image."""
+    extracts lines from the left image. `scales`: the pyramid's scale
+    factors, already on the images' device (a host list copied here would
+    make every frame wait for the card)."""
     feat_l, feat_r = extract_orb_pair(img_left, img_right, spec)
-    scales = torch.tensor(spec.scales, dtype=torch.float32,
-                          device=img_left.device)
     u_right, depth = stereo_match(feat_l, feat_r, img_left, img_right,
                                   scales, cam.bf, cam.fx)
     lines = (_lines(img_left, line_capacity, line_cfg) if line_capacity > 1

@@ -68,6 +68,7 @@ class LocalMapper:
             ba_iters=sys.settings.local_ba_iters,
             # cnThObs: 2 mono / 3 stereo (reference LocalMapping.cc:419)
             th_obs=2 if sys.sensor.name == "MONOCULAR" else 3,
+            with_lines=sys.settings.using_line,
             k_bucket=kb,
         )
         fetch = _HostCopy(stats)

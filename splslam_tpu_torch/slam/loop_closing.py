@@ -13,7 +13,7 @@ The reference LoopClosing thread (src/LoopClosing.cc):
   pose_graph_sim3`), the landmarks moved with their owning keyframes,
   loop-point fusion (`loop_search_and_fuse`), then global BA
   (`RunGlobalBundleAdjustment` :647, here the matrix-free PCG solver
-  `optim/ba.py::ba_solve_pcg`).
+  `optim/ba.py::ba_solve_pcg`, with the map lines' endpoint edges).
 
 The reference kills the pipeline after verification (ComputeSim3 returns
 false, :390-392), and that is the default here: with
@@ -39,11 +39,10 @@ from splslam_tpu_torch.ops import match as M
 from splslam_tpu_torch.optim import sim3 as S3
 from splslam_tpu_torch.optim.ba import BAProblem, ba_solve_pcg
 from splslam_tpu_torch.slam import reloc
-from splslam_tpu_torch.slam.frame import LINES_LATER
 from splslam_tpu_torch.slam.map import (MapState, covisibility_counts,
                                         predict_octave)
-from splslam_tpu_torch.slam.mapping_ops import (_scatter_set_last,
-                                                _topk_covisible, _unique_ids)
+from splslam_tpu_torch.slam.mapping_ops import (_scatter_set_last, _topk_covisible,
+                                                _unique_ids, add_line_edges)
 
 MIN_MATCHES = 20        # reference :262 nmatches >= 20
 MIN_SIM3_INLIERS = 20   # reference :345 OptimizeSim3 >= 20
@@ -456,13 +455,16 @@ class LoopCloser:
     def run_global_ba(self, rounds: int = 2, with_lines: bool = True):
         """Full-map bundle adjustment (reference RunGlobalBundleAdjustment)
         with the matrix-free PCG solver, over the keyframe bucket and the
-        whole point table. Map lines follow their owning keyframe's pose
-        change, X' = Tnew^-1 Told X. Line edges in the solve are a later
-        slice: with a line table in use, `with_lines=True` raises."""
+        whole point table. With `with_lines` and a line table in use, every
+        valid map line joins as paired 1-dof endpoint edges over the
+        bucket's keyframes (`add_line_edges`; the reference's GBA has no
+        line blocks, the JAX package's does); a line with at least 2 live
+        observations (counted over the whole keyframe table) and a finite
+        result takes the optimized endpoints, its midpoint their mean.
+        Every other line follows its owning keyframe's pose change,
+        X' = Tnew^-1 Told X."""
         sys = self.sys
         st = sys.map
-        if with_lines and st.kfs.ll_idx.shape[1] > 1:
-            raise NotImplementedError(LINES_LATER)
         dev = sys.device
         kfs = st.kfs
         K = _k_bucket(kfs.Tcw.shape[0], sys.n_kfs)
@@ -485,16 +487,36 @@ class LoopCloser:
             e_inv_sigma2=(1.0 / kfs.sigma2[:K]).reshape(-1),
             e_ok=e_ok.reshape(-1),
         )
-        res = ba_solve_pcg(sys.cam, prob, rounds=rounds)
         lns = st.lns
+        P, Q = st.pts.xyz.shape[0], lns.xyz.shape[0]
+        use_lines = with_lines and kfs.ll_idx.shape[1] > 1
+        if use_lines:
+            prob = add_line_edges(
+                st, torch.where(kf_valid, ar, -1),
+                torch.where(lns.valid, torch.arange(Q, dtype=torch.int32, device=dev),
+                            -1), prob)
+        res = ba_solve_pcg(sys.cam, prob, rounds=rounds)
         lref = lns.first_kf.clamp(0, K - 1).long()
         To, Tn = old_Tcw[lref], res.Tcw[lref]
         pc = lns.xyz @ To[:, :3, :3].transpose(1, 2) + To[:, None, :3, 3]
         lxw = (pc - Tn[:, None, :3, 3]) @ Tn[:, :3, :3]
-        lns.xyz.copy_(torch.where((lns.valid & kfs.valid[lref])[:, None, None],
-                                  lxw, lns.xyz))
+        new_lxyz = torch.where((lns.valid & kfs.valid[lref])[:, None, None], lxw,
+                               lns.xyz)
+        if use_lines:
+            ll = kfs.ll_idx
+            obs_ok = ((ll >= 0) & kfs.lvalid & kfs.valid[:, None]
+                      & lns.valid[ll.clamp(min=0).long()])
+            cnt = torch.zeros((Q + 1,), dtype=torch.int32, device=dev).index_add_(
+                0, torch.where(obs_ok, ll, Q).reshape(-1).long(),
+                torch.ones(ll.numel(), dtype=torch.int32, device=dev))[:Q]
+            ends = res.xyz[P:P + 2 * Q].reshape(Q, 2, 3)
+            opt = torch.stack([ends[:, 0], 0.5 * (ends[:, 0] + ends[:, 1]), ends[:, 1]],
+                              dim=1)
+            adopt = lns.valid & (cnt >= 2) & torch.isfinite(opt).all(dim=2).all(dim=1)
+            new_lxyz = torch.where(adopt[:, None, None], opt, new_lxyz)
+        lns.xyz.copy_(new_lxyz)
         kfs.Tcw[:K] = res.Tcw
-        st.pts.xyz.copy_(res.xyz)
+        st.pts.xyz.copy_(res.xyz[:P])
         # One copy back: the solver's guard counter and the live poses for
         # the host pose log.
         n = sys.n_kfs

@@ -214,7 +214,7 @@ def vo_frame_step(
     """One stereo frame (`imgs` uint8 [2,H,W]): build, track, update the
     landmark counters in place. Returns (map, new_step_state, stats)."""
     frame = build_frame_stereo(imgs[0].float(), imgs[1].float(), cam, spec,
-                               line_capacity, line_cfg)
+                               scales, line_capacity, line_cfg)
     map_state, state, stats, vis_ids, found_ids = _track_body(
         frame, map_state, prev, th_depth_m, ref_kf, cam, scales,
         m_local, scale_factor, n_levels,

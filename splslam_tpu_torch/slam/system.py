@@ -22,12 +22,11 @@ kill-switch does; with `enable_loop_correction` it corrects them
 keyframe database (`slam/reloc.py`) before it is declared LOST.
 
 Stereo and monocular run with the JAX package's defaults: local mapping,
-relocalization and loop detection on, loop correction off. Lines
-(`using_line`) run on either sensor with local mapping, relocalization
-and loop closing off: their mapping stages, line relocalization and line
-correction are not ported yet, so asking for lines with any of those
-raises NotImplementedError, as do the ORB-SLAM2 text vocabulary and the
-RGB-D sensor; nothing is dropped silently. `save_map` / `load_map` write and read the
+relocalization and loop detection on, loop correction off; with lines
+(`using_line`) too, on either sensor: the line mapping stages, the EPnL
+relocalization seed and global BA with line edges. The ORB-SLAM2 text
+vocabulary and the RGB-D sensor raise NotImplementedError; nothing is
+dropped silently. `save_map` / `load_map` write and read the
 JAX package's checkpoint keys, so either package loads the other's map.
 """
 
@@ -45,7 +44,7 @@ from splslam_tpu_torch.bow import vocabulary as V
 from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
 from splslam_tpu_torch.slam import mono, pipeline, reloc
-from splslam_tpu_torch.slam.frame import LINES_LATER, FrameData, build_frame_stereo
+from splslam_tpu_torch.slam.frame import FrameData, build_frame_stereo
 from splslam_tpu_torch.slam.local_mapping import LocalMapper
 from splslam_tpu_torch.slam.loop_closing import LoopCloser
 from splslam_tpu_torch.slam.map import MapState
@@ -156,16 +155,6 @@ class _TrajEntry:
 def _check_slice(settings: Settings, sensor: Sensor):
     if sensor == Sensor.RGBD:
         raise NotImplementedError("RGBD sensor: later slice")
-    if settings.using_line:
-        stages = [name for name, on in (
-            ("local mapping", settings.enable_local_mapping),
-            ("relocalization", settings.enable_relocalization),
-            ("loop closing", settings.enable_loop_closing),
-            ("loop correction", settings.enable_loop_correction)) if on]
-        if stages:
-            raise NotImplementedError(
-                f"{LINES_LATER}: lines with {', '.join(stages)} (the line "
-                "mapping stages, line relocalization and line correction)")
     if (settings.vocabulary_path or "").endswith(".txt"):
         raise NotImplementedError("ORB-SLAM2 text vocabulary: later slice")
 
@@ -255,16 +244,16 @@ class System:
         if self.state in (TrackingState.NO_IMAGES_YET,
                           TrackingState.NOT_INITIALIZED):
             frame = build_frame_stereo(imgs[0].float(), imgs[1].float(),
-                                       self.cam, self.spec, self.line_cap,
-                                       self.line_cfg)
+                                       self.cam, self.spec, self.scales,
+                                       self.line_cap, self.line_cfg)
             self._stereo_initialize(frame, timestamp)
             return self.last_Tcw_np.copy()
         if self.step is None:
             # LOST with no live tracker state (right after load_map): build
             # the frame and go straight to relocalization.
             frame = build_frame_stereo(imgs[0].float(), imgs[1].float(),
-                                       self.cam, self.spec, self.line_cap,
-                                       self.line_cfg)
+                                       self.cam, self.spec, self.scales,
+                                       self.line_cap, self.line_cfg)
             step = StepState.fresh(
                 frame, torch.from_numpy(self.last_Tcw_np).to(self.device))
             if self.vocab is not None and self.n_kfs > 0:
@@ -418,10 +407,12 @@ class System:
             if c >= self.n_kfs:
                 continue
             lm = kfs.lm_idx[c]
+            ll = kfs.ll_idx[c]
             gen.manual_seed(self.frame_id)   # one seed per frame, as the reference
             Tcw, n_in, lm_gid, ll_gid = reloc.reloc_attempt(
                 self.cam, frame, kfs.desc[c], kfs.fvalid[c], lm,
-                self.map.pts.xyz[lm.clamp(min=0).long()], generator=gen)
+                self.map.pts.xyz[lm.clamp(min=0).long()], kfs.ldesc[c], ll,
+                self.map.lns.xyz[ll.clamp(min=0).long()], generator=gen)
             if int(n_in) < self.settings.reloc_min_inliers:
                 continue
             Tcw_np = Tcw.cpu().numpy().astype(np.float32)

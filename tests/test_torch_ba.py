@@ -402,7 +402,32 @@ def test_ba_line_edges_match_jax(solver):
         assert np.linalg.norm(tr.Tcw[c][:3, 3] - Tg[c][:3, 3]) < 0.01
 
 
-def test_ba_pcg_rejects_line_edges():
-    cam, p, _, _ = _line_problem()
-    with pytest.raises(NotImplementedError, match="line edges"):
-        TB.ba_solve_pcg(TCAM, convert.ba_problem_from_numpy(p, "cpu"))
+def test_ba_pcg_line_edges_match_jax(one_thread):
+    """`ba_solve_pcg` on the 64-line problem above: point and line edges in
+    one unsorted table, line rows robustified at 3.841 and re-classified
+    by their pair's joint chi2. Poses, points and the inlier mask with
+    `_assert_same`'s tolerances; endpoints off the reference's line
+    within XYZ_ATOL (along it they are unobserved)."""
+    n_lines = 64
+    cam, p, Tg, n_bad = _line_problem(n_lines=n_lines)
+    kw = dict(rounds=2, gn_iters=4, cg_iters=30)
+    jr = jax.device_get(JB.ba_solve_pcg(cam, jax.tree.map(jnp.asarray, p), **kw))
+    tr = convert.ba_result_to_numpy(
+        TB.ba_solve_pcg(TCAM, convert.ba_problem_from_numpy(p, "cpu"), **kw))
+    L = p.xyz.shape[0] - 2 * n_lines
+    _assert_same(jr._replace(xyz=jr.xyz[:L]), tr._replace(xyz=tr.xyz[:L]))
+    je, te = jr.xyz[L:].reshape(-1, 2, 3), tr.xyz[L:].reshape(-1, 2, 3)
+    d = je[:, 1] - je[:, 0]
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    off = te - je
+    along = np.sum(off * d[:, None], -1)
+    np.testing.assert_allclose(off - along[..., None] * d[:, None], 0, atol=XYZ_ATOL)
+    assert int(tr.n_state_revert) == 0
+    # the joint pair gate rejects the lines offset in view 2, there only
+    line = np.asarray(p.e_line)
+    q = (np.asarray(p.e_lm)[line] - L) // 2
+    bad = (q < n_bad) & (np.asarray(p.e_cam)[line] == 2)
+    assert not tr.e_inlier[line][bad].any()
+    assert tr.e_inlier[line][~bad].mean() > 0.9
+    for c in range(1, p.Tcw.shape[0]):
+        assert np.linalg.norm(tr.Tcw[c][:3, 3] - Tg[c][:3, 3]) < 0.01

@@ -8,7 +8,10 @@ a kidnap with relocalization, and the loop correction: `pose_graph_sim3`,
 built on the CPU), and the monocular point+line path: the line detector,
 the ORB kernel at B = 1 inside `build_frame_mono`, a short `track_mono`
 run, and a keyframe insertion and a mono frame step that wait for
-nothing. Every test skips
+nothing; a stereo frame step that waits for nothing; and the point+line
+back end from one CPU-built mono line map: a line mapping step and
+global BA with line edges card against CPU, and a line mapping step and
+a line relocalization attempt that wait for nothing. Every test skips
 on a host without a card.
 
 This file imports no JAX (a GPU host need not have it, and
@@ -708,3 +711,182 @@ def test_mono_frame_step_does_not_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(stats).all())
     assert int(stats[PL.S_N_IN]) > 15
+
+
+def test_stereo_frame_step_does_not_sync(cuda):
+    """One stereo frame (ORB on both images in one launch, the stereo
+    match with the System's cached scale table, tracking, the counter
+    updates) reads nothing back to the host."""
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    K, bf, frames, _ = make_stereo_sequence(n_frames=4, motion="forward",
+                                            width=320, height=240)
+    st = _settings(K, bf, enable_local_mapping=False, enable_relocalization=False,
+                   enable_loop_closing=False)
+    sysm = TS.System(st, TS.Sensor.STEREO, cuda)
+    for i, (l, r) in enumerate(frames[:-1]):
+        sysm.track_stereo(l, r, i * 0.1)
+    assert sysm.get_tracking_state() == TS.TrackingState.OK
+    imgs = torch.from_numpy(np.stack(frames[-1]).astype(np.uint8)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, step, stats = PL.vo_frame_step(
+            imgs, sysm.map, sysm.step, sysm.th_depth_m, sysm.ref_kf, sysm.cam,
+            sysm.spec, sysm.scales, m_local=st.local_window,
+            scale_factor=st.scale_factor, n_levels=st.n_levels,
+            line_capacity=sysm.line_cap, line_cfg=sysm.line_cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(stats).all())
+    assert int(stats[PL.S_N_IN]) > 100
+
+
+# ---------------------------------------------------------------------
+# point+line mapping, relocalization and global BA, card against CPU
+# from one CPU-built monocular line map
+# ---------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def line_map():
+    """The CPU port's mono+lines run with the JAX defaults (local mapping
+    with its line stages, relocalization, loop detection) on 20 grid
+    frames with 128 line slots (tests/test_torch_mono_lines.py's run):
+    the System and the state that entered its last mapping step (a CPU
+    copy), with that step's keyframe and arguments."""
+    import copy
+
+    if not torch.cuda.is_available():     # before the CPU run
+        pytest.skip("needs a CUDA device")
+    K, _, frames, _ = _grid_frames(20)
+    st = _settings(K, 0.0, using_line=True, line_features=128)
+    sysm = TS.System(st, TS.Sensor.MONOCULAR, "cpu")
+    calls = []
+    step = TMO.mapping_step
+
+    def capture(m, kf, *args, **kw):
+        calls.append((m.to("cpu"), kf, copy.copy(kw)))
+        return step(m, kf, *args, **kw)
+
+    TMO.mapping_step = capture
+    try:
+        for i, (l, _) in enumerate(frames):
+            sysm.track_mono(l, i * 0.1)
+        sysm.drain()
+    finally:
+        TMO.mapping_step = step
+    assert sysm.get_tracking_state() == TS.TrackingState.OK
+    assert calls and calls[-1][2]["with_lines"]
+    assert int(sysm.map.lns.valid.sum()) >= 3
+    return sysm, calls[-1]
+
+
+def _line_int_tables(m):
+    t = _int_tables(m)
+    t.update({"n_lns": m.n_lns, "lns.valid": m.lns.valid, "lns.n_obs": m.lns.n_obs,
+              "lns.first_kf": m.lns.first_kf, "lns.desc": m.lns.desc,
+              "kfs.ll_idx": m.kfs.ll_idx})
+    return t
+
+
+def test_line_mapping_step_gpu_matches_cpu(cuda, line_map):
+    """The captured line mapping step on the card and on the CPU from
+    identical maps: the integer tables after cull, triangulate and fuse
+    (points and lines) exact, the window's edge table exact; after the
+    dual point/line BA no revert, inlier masks >= 99% equal and keyframe
+    poses within 2e-2 (its line-only pass is nearly singular on such a
+    map, tests/test_torch_line_mapping.py); then the whole step's
+    integer tables."""
+    sysm, (m0, kf, kw) = line_map
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("gpu", cuda)):
+        m = m0.to(dev)
+        m = m._replace(kfs=type(m.kfs)(*[x[:kw["k_bucket"]] for x in m.kfs]))
+        m, _ = TMO.map_upkeep(m, kf, sysm.cam, sysm.scales.to(dev), 1.2, 4,
+                              kw["th_obs"], True)
+        ints = {k: v.to("cpu", copy=True) for k, v in _line_int_tables(m).items()}
+        m, prob, res = TMO.local_ba(m, kf, sysm.cam, 1.2, 4, with_lines=True)
+        step_m, stats = TMO.mapping_step(m0.to(dev), kf, sysm.cam, sysm.scales.to(dev),
+                                         **kw)
+        out[key] = (ints, prob, res, {k: v.to("cpu", copy=True)
+                                      for k, v in _line_int_tables(step_m).items()},
+                    stats.cpu())
+    (ic, pc, rc, sc, stc), (ig, pg, rg, sg, stg) = out["cpu"], out["gpu"]
+    for k in ic:
+        torch.testing.assert_close(ig[k], ic[k], rtol=0, atol=0, msg=k)
+    torch.testing.assert_close(pg.e_ok.cpu(), pc.e_ok, rtol=0, atol=0)
+    torch.testing.assert_close(pg.e_lm.cpu(), pc.e_lm, rtol=0, atol=0)
+    assert int(pc.e_ok[pc.e_line].sum()) >= 6
+    assert int(rg.n_state_revert) == int(rc.n_state_revert) == 0
+    pose_err = float((rg.Tcw.cpu() - rc.Tcw).abs().max())
+    agree = float((rg.e_inlier.cpu() == rc.e_inlier)[pc.e_ok].float().mean())
+    differ = {k: int((sg[k] != sc[k]).sum()) for k in sc}
+    print(f"line mapping step card vs CPU: pose max abs err {pose_err:.3e}, inlier "
+          f"agreement {agree:.5f}; whole step, integer entries differing: {differ}")
+    assert pose_err <= 2e-2 and agree >= 0.99
+    for k in sc:
+        torch.testing.assert_close(sg[k], sc[k], rtol=0, atol=0, msg=k)
+
+
+def test_global_ba_with_lines_gpu_matches_cpu(cuda, line_map):
+    """`run_global_ba(with_lines=True)` on the final line map, card against
+    CPU: poses within 1e-3, 99% of the landmarks within 1e-3, inlier masks
+    >= 99% equal, the adopted lines' endpoints within 1e-2 off the CPU's
+    line (their segment sums are float atomics on the card)."""
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    sysm = line_map[0]
+    out = []
+    for dev in ("cpu", cuda):
+        stub = _stub(sysm, dev)
+        lc = TLC.LoopCloser(stub)
+        res = lc.run_global_ba(rounds=1, with_lines=True)
+        out.append((stub, lc, res))
+    (sc, lcc, rc), (sg, lcg, rg) = out
+    assert int(rc.n_state_revert) == int(rg.n_state_revert) == 0
+    pose_err = float((rg.Tcw.cpu() - rc.Tcw).abs().max())
+    ok = sc.map.pts.valid
+    P = ok.shape[0]
+    d = (rg.xyz[:P].cpu() - rc.xyz[:P]).norm(dim=-1)[ok]
+    agree = float((rg.e_inlier.cpu() == rc.e_inlier)[rc.e_inlier | rg.e_inlier.cpu()]
+                  .float().mean())
+    lv = sc.map.lns.valid
+    jx, tx = sc.map.lns.xyz[lv], sg.map.lns.xyz.cpu()[lv]
+    dv = jx[:, 2] - jx[:, 0]
+    dv = dv / dv.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+    off = tx - jx
+    off = off - (off * dv[:, None]).sum(-1, keepdim=True) * dv[:, None]
+    print(f"global BA with lines card vs CPU: pose max abs err {pose_err:.3e}, "
+          f"landmark err q99 {float(torch.quantile(d, 0.99)):.3e}, inlier agreement "
+          f"{agree:.5f}, line endpoints off-line max {float(off.abs().max()):.3e}")
+    assert pose_err <= 1e-3 and float(torch.quantile(d, 0.99)) <= 1e-3
+    assert agree >= 0.99 and float(off.abs().max()) <= 1e-2
+    assert torch.isfinite(sg.map.lns.xyz).all()
+
+
+def test_line_mapping_step_and_reloc_do_not_sync(cuda, line_map):
+    """A mapping step with its line stages and a relocalization attempt
+    with its line branch (line match, EPnL seed, line rows in the pose
+    solves) read nothing back to the host."""
+    sysm, (m0, kf, kw) = line_map
+    frame = sysm.step.frame
+    frame = type(frame)(feat=type(frame.feat)(*[x.to(cuda) for x in frame.feat]),
+                        u_right=frame.u_right.to(cuda), depth=frame.depth.to(cuda),
+                        lines=type(frame.lines)(*[x.to(cuda) for x in frame.lines]))
+    m = m0.to(cuda)
+    st = sysm.map.to(cuda)
+    c = sysm.ref_kf
+    kfs = st.kfs
+    lm, ll = kfs.lm_idx[c], kfs.ll_idx[c]
+    scales = sysm.scales.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m, stats = TMO.mapping_step(m, kf, sysm.cam, scales, **kw)
+        out = TR.reloc_attempt(sysm.cam, frame, kfs.desc[c], kfs.fvalid[c], lm,
+                               st.pts.xyz[lm.clamp(min=0).long()], kfs.ldesc[c], ll,
+                               st.lns.xyz[ll.clamp(min=0).long()], generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(stats).all()) and int(stats[TMO.MSTAT_REVERT]) == 0
+    assert int(out[1]) >= 50

@@ -405,7 +405,26 @@ def test_popcount32_exact():
     np.testing.assert_array_equal(got, ref)
 
 
-def test_mapping_step_rejects_lines(ref):
-    with pytest.raises(NotImplementedError):
-        TMO.mapping_step(tmap(ref), ref.kf, ref.tcam, torch.from_numpy(ref.scales),
-                         with_lines=True)
+def test_mapping_step_with_lines_on_a_points_map(ref):
+    """`with_lines=True` on a map with no line table (1 slot, no lines):
+    the line stages find nothing, the dual BA's line pass has no edge and
+    never wins a camera, so the step ends where the points-only step does
+    (integers exact, poses within 1e-3: its joint pass starts from the
+    point pass's optimum and runs on)."""
+    sc = torch.from_numpy(ref.scales)
+    kw = dict(ref.kw)
+    a, sa = TMO.mapping_step(convert.map_state_from_numpy(ref.before, "cpu"), ref.kf,
+                             ref.tcam, sc, **kw)
+    kw["with_lines"] = True
+    b, sb = TMO.mapping_step(convert.map_state_from_numpy(ref.before, "cpu"), ref.kf,
+                             ref.tcam, sc, **kw)
+    ints = np.r_[0:3, TMO.MSTAT_CULL + 17 * np.arange(TMO.MAX_KF_CULL), TMO.MSTAT_REVERT]
+    np.testing.assert_array_equal(sb.numpy()[ints], sa.numpy()[ints])
+    a, b = convert.map_state_to_numpy(a), convert.map_state_to_numpy(b)
+    for group in ("pts", "lns", "kfs"):
+        for f in getattr(a, group)._fields:
+            x, y = np.asarray(getattr(getattr(a, group), f)), np.asarray(getattr(getattr(b, group), f))
+            if x.dtype.kind in "biu":
+                np.testing.assert_array_equal(y, x, err_msg=f"{group}.{f}")
+    assert int(b.n_lns) == 0 and not b.lns.valid.any()
+    np.testing.assert_allclose(b.kfs.Tcw, a.kfs.Tcw, atol=1e-3)

@@ -19,7 +19,8 @@ counts exact and its pose within 1e-4; over the whole System run the
 same init frame, `init_used_h` and keyframes, per-frame poses within
 2e-2 (translation and rotation entries; they agree to 1e-4 for the first
 13 frames, then one borderline point inlier flips and the two runs drift
-apart by up to 6e-3), and the Sim3-aligned ATE under 0.15
+apart by up to 6e-3), the line inliers of every tracked frame equal,
+and the Sim3-aligned ATE under 0.15
 (tests/test_e2e_mono.py's gate). The points-only run with mapping:
 ATE < 0.1 and no non-finite BA revert."""
 
@@ -76,12 +77,25 @@ def runs():
     mp.setattr(TM, "draw_init_samples", jax_samples)
     try:
         for sysm in (js, ts):
+            record_line_inliers(sysm)
             for i, (l, _) in enumerate(frames):
                 sysm.track_mono(l, i * 0.1)
             sysm.drain()
     finally:
         mp.undo()
     return js, ts, frames, gt
+
+
+def record_line_inliers(sysm):
+    """Keep each consumed frame's line-inlier count in `sysm.ln_in`."""
+    sysm.ln_in = []
+    consume = sysm._process_one
+
+    def process_one():
+        sysm.ln_in.append(int(np.asarray(sysm._pending[0][0])[TP.S_N_LN_IN]))
+        consume()
+
+    sysm._process_one = process_one
 
 
 class Init:
@@ -258,6 +272,14 @@ def test_track_mono_system_matches_jax(runs):
     np.testing.assert_allclose(pt[:, :3, :3], pj[:, :3, :3], atol=POSE_ATOL)
     idx = [int(round(e.ts / 0.1)) for e in ts.trajectory if not e.lost]
     assert ate_rmse(pt, gt[idx], align_scale=True) < 0.15
+
+
+def test_line_inliers_per_frame_match_jax(runs):
+    """Every tracked frame's line inliers equal the reference's: where the
+    port matches no map line, the reference matches none either."""
+    js, ts, _, _ = runs
+    assert ts.ln_in == js.ln_in
+    assert len(ts.ln_in) >= 10 and max(ts.ln_in) >= 1
 
 
 def test_track_mono_trajectory_export(runs, tmp_path):

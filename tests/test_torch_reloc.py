@@ -7,12 +7,17 @@ frame builder) are carried to the port with `convert`. Each attempt runs
 in both packages with the JAX package's minimal sets injected into the
 port (its Gumbel top-k draw, recomputed here from the same key).
 
-Tolerances: the frame's matches, lm_gid and inlier counts exact; the
+The line branch runs on a second input: a grid frame with its line
+table against a candidate built from the rendered depth (`line_ref`),
+with the JAX package's EPnL draws injected as well.
+
+Tolerances: the frame's matches, lm_gid, ll_gid and inlier counts exact; the
 relocalized pose within 1e-3 (the JAX attempt is one jitted program with
 fused multiply-adds, the port runs op by op). PnP RANSAC alone: pose
 within 1e-4 and counts equal, except that a point whose chi2 lies within
 1e-4 of the 5.991 gate may flip (the test names such points; the gate is
-not loosened)."""
+not loosened). EPnL RANSAC alone and the 6-line DLT: pose within 1e-4,
+counts and inlier masks equal."""
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +40,7 @@ W, H = 320, 240
 N_PRE = 7
 GATE = 5.991
 POSE_ATOL = 1e-3
+QUERY = 3          # the query frame of the line relocalization
 
 
 class Ref:
@@ -235,12 +241,188 @@ def test_proj_round_duplicate_columns_highest_row_wins(ref):
     np.testing.assert_array_equal(gid2.numpy()[others], gid.numpy()[others])
 
 
-def test_reloc_attempt_rejects_lines(ref):
+# ----------------------------------------------------------------------
+# The line branch: EPnL seed, line match, line rows in the pose solves.
+# ----------------------------------------------------------------------
+def _line_pose_problem(seed, n=40, outlier_frac=0.25):
+    """A pose, map lines in front of it, their exact pixel-line
+    coefficients and start/mid/end points; a share of the observations
+    replaced by unrelated lines."""
+    rng = np.random.default_rng(seed)
+    xi = np.array([0.08, -0.04, 0.06, 0.05, -0.02, 0.04], np.float32)
+    T = TSE3.se3_exp(torch.from_numpy(xi)).numpy()
+    A = rng.uniform([-3, -2, 4], [3, 2, 10], (n, 3))
+    d = rng.normal(0, 1, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    B = A + rng.uniform(0.8, 2.0, (n, 1)) * d
+    xyz3 = np.stack([A, 0.5 * (A + B), B], axis=1).astype(np.float32)
+
+    def proj(X):
+        pc = X @ T[:3, :3].T + T[:3, 3]
+        return np.stack([500.0 * pc[:, 0] / pc[:, 2] + 320.0,
+                         500.0 * pc[:, 1] / pc[:, 2] + 240.0], -1)
+
+    seg = np.concatenate([proj(A), proj(B)], axis=1)
+    bad = rng.choice(n, int(n * outlier_frac), replace=False)
+    seg[bad] = rng.uniform([0, 0, 0, 0], [640, 480, 640, 480], (len(bad), 4))
+    from splslam_tpu_torch.optim.pose_gn import line_coefficients
+    coef = line_coefficients(torch.from_numpy(seg.astype(np.float32))).numpy()
+    mask = rng.random(n) < 0.95
+    return T, coef, xyz3, mask
+
+
+def _line_samples(key, mask, n_hyp=TR.N_HYP_LINES):
+    """The JAX package's EPnL draw (splslam_tpu/slam/reloc.py:171-172)."""
+    return _jax_samples(key, mask, n_hyp, 6)
+
+
+def test_dlt_pose_from_lines_recovers_an_exact_pose():
+    T, coef, xyz3, _ = _line_pose_problem(0, n=6, outlier_frac=0.0)
+    tcam = TCam.create(500.0, 500.0, 320.0, 240.0, width=640, height=480)
+    c = torch.from_numpy(coef)
+    lp = torch.stack([c[:, 0] * tcam.fx, c[:, 1] * tcam.fy,
+                      c[:, 0] * tcam.cx + c[:, 1] * tcam.cy + c[:, 2]], dim=-1)
+    ends = torch.from_numpy(xyz3[:, [0, 2]])
+    Tt = TR._dlt_pose_from_lines(lp[None], ends[None])[0].numpy()
+    np.testing.assert_allclose(Tt, T, atol=1e-4)
+    Tj = np.asarray(JR._dlt_pose_from_lines(jnp.asarray(lp.numpy()),
+                                            jnp.asarray(ends.numpy())))
+    np.testing.assert_allclose(Tt, Tj, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_epnl_ransac_matches_jax_with_injected_samples(seed):
+    T, coef, xyz3, mask = _line_pose_problem(seed)
+    jcam = JCam.create(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
+    tcam = TCam.create(500.0, 500.0, 320.0, 240.0, width=640, height=480)
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 1)
+    Tj, nj, inlj = JR.epnl_ransac(key, jcam, *map(jnp.asarray, (coef, xyz3, mask)))
+    Tt, nt, inlt = TR.epnl_ransac(tcam, *map(torch.from_numpy, (coef, xyz3, mask)),
+                                  samples=_line_samples(key, mask))
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=0, atol=1e-4)
+    assert int(nt) == int(nj)
+    np.testing.assert_array_equal(inlt.numpy(), np.asarray(inlj))
+    np.testing.assert_allclose(Tt.numpy(), T, atol=1e-3)
+    assert int(nt) >= 0.6 * mask.sum()
+
+
+@pytest.fixture(scope="module")
+def line_ref():
+    """Two frames of the grid scene with depth (RGB-D render, lateral
+    motion), both with 64 line slots (the JAX frame builder): the query
+    is frame QUERY; the candidate keyframe holds frame 0's keypoints,
+    lifted to 3D with the true depth and pose, and the query's own line
+    segments lifted the same way, with their descriptors (on the grid
+    texture a global LBD match between two frames pairs mostly wrong
+    lines, so the candidate's lines are the query's: every line match is
+    right and the line seed has something to find)."""
+    from splslam_tpu.io.synthetic import make_rgbd_sequence
+    from splslam_tpu.slam.frame import build_frame_mono
+
+    K, _, frames, gt = make_rgbd_sequence(n_frames=QUERY + 1, motion="lateral",
+                                          width=W, height=H, texture="grid")
+    st = JS.Settings(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                     cy=float(K[1, 2]), width=W, height=H, n_features=600, n_levels=4)
+    js = JS.System(st, JS.Sensor.MONOCULAR)
+    fr = {i: jax.device_get(build_frame_mono(jnp.asarray(frames[i][0], jnp.float32),
+                                             js.cam, js.spec, with_lines=True,
+                                             line_capacity=64)) for i in (0, QUERY)}
+
+    def lift(uv, i):
+        depth, Twc = frames[i][1], gt[i]
+        u = np.clip(np.round(uv[:, 0]).astype(int), 0, W - 1)
+        v = np.clip(np.round(uv[:, 1]).astype(int), 0, H - 1)
+        z = depth[v, u]
+        pc = np.stack([(uv[:, 0] - K[0, 2]) / K[0, 0] * z,
+                       (uv[:, 1] - K[1, 2]) / K[1, 1] * z, z], -1)
+        return (pc @ Twc[:3, :3].T + Twc[:3, 3]).astype(np.float32), z > 0
+
+    r = Ref()
+    r.jcam = js.cam
+    r.tcam = TCam.create(st.fx, st.fy, st.cx, st.cy, width=W, height=H)
+    r.frame = fr[QUERY]
+    r.Twc = gt[QUERY]
+    f0 = fr[0]
+    r.desc = np.array(f0.feat.desc)
+    r.xyz, zok = lift(np.asarray(f0.feat.xy), 0)
+    r.fvalid = np.asarray(f0.feat.valid) & zok
+    r.lm = np.where(r.fvalid, np.arange(len(zok)), -1).astype(np.int32)
+    seg = np.asarray(r.frame.lines.seg)
+    s3, sok = lift(seg[:, :2], QUERY)
+    e3, eok = lift(seg[:, 2:], QUERY)
+    r.ldesc = np.array(r.frame.lines.desc)
+    lok = np.asarray(r.frame.lines.valid) & sok & eok
+    r.ll = np.where(lok, 100 + np.arange(len(lok)), -1).astype(np.int32)
+    r.ll_xyz3 = np.stack([s3, 0.5 * (s3 + e3), e3], axis=1)
+    return r
+
+
+def _jax_line_match(frame, ldesc, ll):
+    """splslam_tpu/slam/reloc.py:229-236: the frame column of each kf row."""
+    d = JM.hamming_matrix(jnp.asarray(ldesc), frame.lines.desc)
+    d = JM.masked_distances(d, jnp.asarray(ll >= 0), frame.lines.valid)
+    mt, _ = JM.nn_match(d, max_dist=JM.TH_HIGH, mutual=True)
+    return np.asarray(mt)
+
+
+@pytest.mark.parametrize("n_points", [None, 8])
+def test_reloc_attempt_with_lines_matches_jax(line_ref, n_points):
+    """With every candidate point the point seed wins; with 8 (too few
+    for it: n0 < 12 against >= 6 line inliers) the EPnL seed replaces it
+    and the points re-enter under the line pose's loose gate. Line ids,
+    point ids and counts exact, the pose within POSE_ATOL."""
+    r = line_ref
+    fvalid, lm = r.fvalid.copy(), r.lm.copy()
+    if n_points is not None:
+        keep = np.nonzero(fvalid)[0][::max(1, fvalid.sum() // n_points)][:n_points]
+        fvalid[:] = False
+        fvalid[keep] = True
+        lm = np.where(fvalid, lm, -1)
+    jframe = jax.tree.map(jnp.asarray, r.frame)
+    key = jax.random.PRNGKey(3)
+    Tj, nj, gidj, llj = JR.reloc_attempt(
+        key, r.jcam, jframe, *map(jnp.asarray, (r.desc, fvalid, lm, r.xyz, r.ldesc,
+                                                r.ll, r.ll_xyz3)))
+    tframe = convert.frame_from_numpy(r.frame, "cpu")
+    t = lambda a: torch.from_numpy(np.array(a))
+    targs = [t(r.desc.view(np.int32)), t(fvalid), t(lm), t(r.xyz),
+             t(r.ldesc.view(np.int32)), t(r.ll), t(r.ll_xyz3)]
+    # the line match
+    mt = _jax_line_match(jframe, r.ldesc, r.ll)
+    ll_gid, _ = TR.line_match(tframe, *targs[4:])
+    want = np.full(tframe.lines.capacity, -1, np.int32)
+    want[mt[mt >= 0]] = r.ll[mt >= 0]
+    np.testing.assert_array_equal(ll_gid.numpy(), want)
+    assert (want >= 0).sum() >= 6
+    _, gid0, _ = TR.global_match(tframe, *targs[:4])
+    samples = _jax_samples(key, gid0.numpy() >= 0, TR.N_HYP, 6)
+    lsamples = _line_samples(jax.random.fold_in(key, 1),
+                             (want >= 0) & np.asarray(r.frame.lines.valid))
+    Tt, nt, gidt, llt = TR.reloc_attempt(r.tcam, tframe, *targs, samples=samples,
+                                         line_samples=lsamples)
+    assert int(nt) == int(nj)
+    np.testing.assert_array_equal(gidt.numpy(), np.asarray(gidj))
+    np.testing.assert_array_equal(llt.numpy(), np.asarray(llj))
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=0, atol=POSE_ATOL)
+    # every candidate line is right: most come back as inliers, and the
+    # pose is right also from the line seed (measured 6 and 8 mm)
+    assert (llt.numpy() >= 0).sum() >= 15
+    assert np.linalg.norm(np.linalg.inv(Tt.numpy())[:3, 3] - r.Twc[:3, 3]) < 0.03
+
+
+def test_reloc_attempt_without_candidate_lines_is_the_point_attempt(ref):
+    """A frame with a line table against a candidate that gives no lines
+    (the arguments left out) runs the point attempt unchanged: the same
+    result as the frame without lines, and no line associations."""
     tframe = convert.frame_from_numpy(ref.frames[7], "cpu")
     lines = type(tframe.lines)(*[torch.cat([x, x]) for x in tframe.lines])
     desc, fvalid, lm, xyz = _candidate(ref, 0)
-    with pytest.raises(NotImplementedError, match="line pipeline"):
-        TR.reloc_attempt(ref.tcam, tframe._replace(lines=lines),
-                         *[torch.from_numpy(np.array(a)) for a in
-                           (desc.view(np.int32), fvalid, lm, xyz)],
-                         generator=torch.Generator())
+    args = [torch.from_numpy(np.array(a)) for a in (desc.view(np.int32), fvalid, lm, xyz)]
+    a = TR.reloc_attempt(ref.tcam, tframe._replace(lines=lines), *args,
+                         generator=torch.Generator().manual_seed(1))
+    b = TR.reloc_attempt(ref.tcam, tframe, *args,
+                         generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
+    assert int(a[1]) == int(b[1]) >= 50
+    torch.testing.assert_close(a[2], b[2], rtol=0, atol=0)
+    assert a[3].shape == (2,) and (a[3] == -1).all()

@@ -16,11 +16,11 @@ BA moves the keyframe poses the frames are tracked against); no
 non-finite BA revert (`mapping_state_revert == 0`) on either side;
 equal trajectory export line counts; after a kidnap, the replayed view
 relocalizes within 0.05 m of ground truth (the JAX gate). Slice limits
-raise NotImplementedError (lines with local mapping, relocalization or
-loop closing; RGB-D; the text vocabulary); loop correction is no longer
-one of them (tests/test_torch_correction.py drives it). The frame
-builders with lines against the reference's, and the point+line lost
-gate's truth table (tests/test_track_gates.py)."""
+raise NotImplementedError (RGB-D; the text vocabulary); lines construct
+with every back-end stage, and loop correction is a setting
+(tests/test_torch_correction.py drives it). The frame builders with
+lines against the reference's, and the point+line lost gate's truth
+table (tests/test_track_gates.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +50,17 @@ def settings_kw(K, bf):
 # the settings of the JAX-vs-port fixtures: relocalization and loop
 # closing off on both sides, so their numbers keep their meaning
 NO_RELOC = dict(enable_relocalization=False, enable_loop_closing=False)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Beside the other test files' workers, torch's own thread pool only
+    oversubscribes the cores (PERF.md §7's CPU note): one thread, as the
+    other heavy parity files."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -229,18 +240,9 @@ NO_STAGES = dict(enable_local_mapping=False, **NO_RELOC)
 @pytest.mark.parametrize("change", [
     dict(sensor=TS.Sensor.RGBD),
     dict(vocabulary_path="ORBvoc.txt"),
-    dict(using_line=True),                                   # the defaults
-    dict(NO_STAGES, using_line=True, enable_local_mapping=True),
-    dict(NO_STAGES, using_line=True, enable_relocalization=True),
-    dict(NO_STAGES, using_line=True, enable_loop_closing=True),
-    dict(NO_STAGES, using_line=True, enable_loop_correction=True),
-    dict(NO_STAGES, sensor=TS.Sensor.MONOCULAR, using_line=True,
-         enable_local_mapping=True),
 ])
 def test_later_slices_raise(change):
-    """Lines run only with local mapping, relocalization and loop closing
-    off (their line stages are later slices); RGB-D and the text
-    vocabulary are later slices."""
+    """RGB-D and the text vocabulary are later slices."""
     change = dict(change)
     sensor = change.pop("sensor", TS.Sensor.STEREO)
     with pytest.raises(NotImplementedError):
@@ -251,6 +253,14 @@ def test_later_slices_raise(change):
     dict(sensor=TS.Sensor.MONOCULAR),
     dict(NO_STAGES, sensor=TS.Sensor.MONOCULAR, using_line=True),
     dict(NO_STAGES, using_line=True),
+    # lines with the back end: the JAX defaults, and each stage alone
+    dict(using_line=True),
+    dict(NO_STAGES, using_line=True, enable_local_mapping=True),
+    dict(NO_STAGES, using_line=True, enable_relocalization=True),
+    dict(NO_STAGES, using_line=True, enable_loop_closing=True),
+    dict(NO_STAGES, using_line=True, enable_loop_correction=True),
+    dict(NO_STAGES, sensor=TS.Sensor.MONOCULAR, using_line=True,
+         enable_local_mapping=True),
 ])
 def test_mono_and_lines_construct(change):
     change = dict(change)
@@ -291,7 +301,7 @@ def test_frame_with_lines_matches_jax(backend):
     jf = jax.device_get(JF.build_frame_stereo(jnp.asarray(l), jnp.asarray(r), jcam,
                                               spec, line_capacity=32, line_cfg=cfg))
     tf = TF.build_frame_stereo(torch.from_numpy(l), torch.from_numpy(r), tcam, spec,
-                               line_capacity=32, line_cfg=cfg)
+                               torch.tensor(spec.scales), line_capacity=32, line_cfg=cfg)
     np.testing.assert_array_equal(tf.feat.desc.numpy(), np.asarray(jf.feat.desc).view(np.int32))
     np.testing.assert_allclose(tf.depth.numpy(), np.asarray(jf.depth), atol=1e-4)
     v = np.asarray(jf.lines.valid)
