@@ -120,7 +120,28 @@ Phases, each fatal on failure:
      triangulate and fuse equal, and those of the whole step); and the
      map saved, loaded into a fresh System and frame 40 relocalized with
      lines on (at least `reloc_min_inliers` inliers; the line inliers and
-     the Sim3-aligned position error print).
+     the Sim3-aligned position error print);
+ 11. RGB-D at the TUM fr1 configuration of
+     splslam_tpu/examples/configs/RGB-D/TUM1.yaml, its values written out
+     here (`rgbd_settings`: 640x480, fx 517.306408, bf 40, ThDepth 40,
+     DepthMapFactor 5000, 1000 features, 8 levels; distortion zero, as the
+     synthetic frames are pinhole and the JAX `build_frame_rgbd` does not
+     undistort), with the JAX defaults, a keyframe every 4 frames and
+     phase 10's table sizes, over 90 synthetic forward frames with 25%
+     depth holes and 2% depth noise, fed as depth x 5000 (the TUM
+     driver's units): frames 0-59 mapping (OK, no frame lost, one
+     mapping step per keyframe after the first, no BA revert,
+     `mapping_guarded` within max(3, steps // 25), a BoW row per
+     keyframe, ATE < 0.08, tests/test_e2e_rgbd.py's gate with holes and
+     noise), frames 60-79 in localization mode (no keyframe and no
+     mapping step, OK, ATE over the segment < 0.08), frames 80-89 after
+     deactivation (keyframes resume); one B = 1 launch a frame. Prints
+     ms/frame (median and p90 from frame 10), ms per mapping step, the
+     timer rows, the device kernels of one `build_frame_rgbd`, one B = 1
+     launch on frame 30 against its plain version, and one
+     `vo_frame_step_rgbd` on the card against the CPU from identical
+     copies of the final state (integers equal), with its synced ms,
+     device activities and idle share.
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -391,6 +412,7 @@ def main() -> None:
     live_launches = correction_phase(loop_sys, scene, card)
     mono_launches, mono_ln_in = mono_phase(card)
     backend_launches = line_backend_phase(card, mono_ln_in)
+    rgbd_launches = rgbd_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
@@ -398,7 +420,8 @@ def main() -> None:
         "source": "splslam_tpu_torch/csrc/orb_describe.cu",
         "replaces": "splslam_tpu/ops/orb_pallas.py:172",
         "launches": (launches + map_launches + reloc_launches + loop_launches
-                     + live_launches + mono_launches + backend_launches),
+                     + live_launches + mono_launches + backend_launches
+                     + rgbd_launches),
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1378,6 +1401,199 @@ def line_backend_phase(card, phase9_ln_in, device="cuda", view=40):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: line back end failed: {failed}")
+    return launches
+
+
+RGBD_W, RGBD_H = 640, 480
+RGBD_FRAMES = 90
+RGBD_FX = 517.306408          # RGB-D/TUM1.yaml Camera.fx
+RGBD_DEPTH_SCALE = 5000.0     # RGB-D/TUM1.yaml DepthMapFactor
+RGBD_ATE_GATE = 0.08          # tests/test_e2e_rgbd.py (holes and noise)
+
+
+def rgbd_settings(Settings, K):
+    """TUM fr1 RGB-D (splslam_tpu/examples/configs/RGB-D/TUM1.yaml):
+    640x480, fx 517.306408, bf 40, ThDepth 40, DepthMapFactor 5000 (a
+    factor of 1/5000), 1000 features, 8 levels, scale 1.2, fps 30; fy and
+    the principal point of the synthetic pinhole frames, distortion zero
+    (the JAX `build_frame_rgbd` does not undistort). The JAX defaults (local
+    mapping, relocalization and loop detection on, correction off), a
+    keyframe every 4 frames (phase 5's cadence) and phase 10's table sizes."""
+    return Settings(
+        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]), cy=float(K[1, 2]),
+        bf=40.0, width=RGBD_W, height=RGBD_H, fps=30.0, th_depth=40.0,
+        depth_map_factor=1.0 / RGBD_DEPTH_SCALE, n_features=1000, n_levels=8,
+        scale_factor=1.2, force_kf_every=4, max_points=16384, max_keyframes=128,
+        local_window=2048,
+    )
+
+
+def rgbd_phase(card, device="cuda"):
+    """Phase 11: RGB-D with the back end on, then localization mode, then
+    mapping again. Returns the kernel launches of its main run."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch import convert
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_rgbd_sequence
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.ops.orb import detect
+    from splslam_tpu_torch.slam import pipeline as PL
+    from splslam_tpu_torch.slam.frame import build_frame_rgbd
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    t_phase = time.perf_counter()
+    # one frame more than the run: the card-vs-CPU step's input
+    K, _, frames, gt = make_rgbd_sequence(
+        n_frames=RGBD_FRAMES + 1, width=RGBD_W, height=RGBD_H, fx=RGBD_FX,
+        baseline=40.0 / RGBD_FX, motion="forward", depth_dropout=0.25,
+        depth_noise=0.02)
+    t_data = time.perf_counter() - t_phase
+    st = rgbd_settings(Settings, K)
+    sysm = System(st, Sensor.RGBD, device)
+    map_ms = []
+    on_keyframe = sysm.mapper.on_keyframe
+
+    def timed_on_keyframe(kf):
+        n = sysm.mapper.n_steps
+        _sync(device)
+        t0 = time.perf_counter()
+        on_keyframe(kf)
+        _sync(device)
+        if sysm.mapper.n_steps > n:
+            map_ms.append((time.perf_counter() - t0) * 1e3)
+
+    sysm.mapper.on_keyframe = timed_on_keyframe
+    times = []
+
+    def run(lo, hi):
+        for i in range(lo, hi):
+            img, depth = frames[i]
+            _sync(device)
+            t0 = time.perf_counter()
+            sysm.track_rgbd(img, depth * RGBD_DEPTH_SCALE, i / 30.0)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        sysm.drain()
+        return sysm.get_tracking_state(), sum(e.lost for e in sysm.trajectory)
+
+    OK.orb_describe.launches = 0
+    # 1. mapping
+    state1, lost1 = run(0, 60)
+    launches1 = OK.orb_describe.launches
+    health = sysm.health()
+    n_kfs1, n_steps1 = sysm.n_kfs, sysm.mapper.n_steps
+    ids = sysm.kf_bow.ids[:n_kfs1].cpu()
+    bow_rows = int((ids < sysm.bow_n_words).any(dim=1).sum())
+    ate1 = ate_rmse(sysm.poses(), gt[:60])
+    # 2. localization mode
+    sysm.activate_localization_mode()
+    state2, lost2 = run(60, 80)
+    n_kfs2, n_steps2 = sysm.n_kfs, sysm.mapper.n_steps
+    ate2 = ate_rmse(sysm.poses()[60:80], gt[60:80])
+    # 3. mapping again
+    sysm.deactivate_localization_mode()
+    state3, lost3 = run(80, RGBD_FRAMES)
+    launches = OK.orb_describe.launches
+    sysm.mapper.on_keyframe = on_keyframe
+    ate_all = ate_rmse(sysm.poses(), gt[:RGBD_FRAMES])
+    tail = np.asarray(times[10:])
+    print(f"rgbd: {RGBD_FRAMES} frames of {RGBD_W}x{RGBD_H}, depth x{RGBD_DEPTH_SCALE:g} "
+          f"with 25% holes and 2% noise; frames 0-59 mapping: state {state1.name}, lost "
+          f"{lost1}, keyframes {n_kfs1}, mapping steps {n_steps1}, landmarks "
+          f"{int(sysm.map.pts.valid.sum())} valid at the end, BoW rows {bow_rows}, "
+          f"ATE {ate1:.5f}, health {health}; frames 60-79 localization mode: state "
+          f"{state2.name}, lost {lost2 - lost1}, keyframes {n_kfs2}, mapping steps "
+          f"{n_steps2}, ATE over the segment {ate2:.5f}; frames 80-{RGBD_FRAMES - 1} "
+          f"mapping again: state {state3.name}, keyframes {sysm.n_kfs}, ATE over the "
+          f"run {ate_all:.5f}; kernel launches {launches}")
+    print(f"track_rgbd: median {np.median(tail):.2f} ms/frame, p90 "
+          f"{np.percentile(tail, 90):.2f} over frames 10-{RGBD_FRAMES - 1} (synced, "
+          f"keyframe frames included); mapping {_ms(map_ms)} a step (synced around "
+          f"on_keyframe), on {card}")
+    print(f"rgbd timers: {sysm.timers.report()}")
+
+    # one build_frame_rgbd: its device kernels; one B = 1 launch against
+    # its plain version on frame 30
+    img = torch.from_numpy(frames[30][0].astype(np.uint8)).to(device).float()
+    dep = torch.from_numpy(frames[30][1] * RGBD_DEPTH_SCALE).to(device)
+    n_dev, dev_ms, orb_ms = device_kernels(lambda: build_frame_rgbd(
+        img, dep, sysm.cam, sysm.spec, st.depth_map_factor))
+    print(f"build_frame_rgbd: {n_dev} device kernels, {dev_ms:.3f} ms device time, "
+          f"orb_describe {orb_ms:.5f} ms, on {card}")
+    spec = sysm.spec
+    lv, det = detect(img, spec)
+    xy = torch.cat([d[1] for d in det])[None]
+    ang_k, desc_k = OK.orb_describe([lv], xy, spec)
+    ang_p, desc_p = OK.orb_describe_reference([lv], xy, spec)
+    _sync(device)
+    err1 = float((ang_k - ang_p).abs().max())
+    agree1 = bit_agreement(desc_k, desc_p)
+    k1_ms = graph_ms(lambda: OK.orb_describe([lv], xy, spec))
+    p1_ms = cuda_ms(lambda: OK.orb_describe_reference([lv], xy, spec))
+    b1_ms, b1_by, _, _ = kernel_bound([lv], xy, spec, OK)
+    print(f"orb_describe B=1 ({xy.shape[1]} slots, {RGBD_W}x{RGBD_H}, 8 levels, rgbd "
+          f"frame 30): angle max abs err {err1:.3e} rad, bits agree {agree1:.6f}; kernel "
+          f"{k1_ms:.5f} ms (graph of 20), plain {p1_ms:.4f} ms, bound {b1_ms:.5f} ms by "
+          f"{b1_by}, on {card}")
+
+    # one vo_frame_step_rgbd from identical copies of the final state
+    img_n = frames[RGBD_FRAMES][0].astype(np.uint8)
+    dep_n = (frames[RGBD_FRAMES][1] * RGBD_DEPTH_SCALE).astype(np.float32)
+    out = {}
+
+    def step_on(dev):
+        step = convert.step_state_from_numpy(convert.step_state_to_numpy(sysm.step), dev)
+        args = (torch.from_numpy(img_n).to(dev), torch.from_numpy(dep_n).to(dev),
+                sysm.map.to(dev), step, sysm.th_depth_m, sysm.ref_kf, sysm.cam,
+                sysm.spec, sysm.scales.to(dev))
+        return lambda: PL.vo_frame_step_rgbd(
+            *args, m_local=st.local_window, scale_factor=st.scale_factor,
+            n_levels=st.n_levels, depth_factor=st.depth_map_factor,
+            line_capacity=sysm.line_cap, line_cfg=sysm.line_cfg)
+
+    for dev in (device, "cpu"):
+        _, new, stats = step_on(dev)()
+        out[dev] = (stats.cpu(), new.lm_gid.cpu())
+    (sg, gg), (sc, gc) = out[device], out["cpu"]
+    ints_equal = bool(torch.equal(sg[16:], sc[16:]) and torch.equal(gg, gc))
+    pose_err = float((sg[:16] - sc[:16]).abs().max())
+    print(f"vo_frame_step_rgbd card vs CPU (frame {RGBD_FRAMES}): counts and landmark "
+          f"ids equal {ints_equal} (counts {sg[16:].tolist()} / {sc[16:].tolist()}), "
+          f"pose max abs err {pose_err:.3e}")
+    # the frame step alone, on a fresh copy each time: synced wall ms,
+    # then its device activities under the profiler
+    step_ms = []
+    for _ in range(5):
+        run = step_on(device)
+        _timed(run, step_ms, device)()
+    n_step, step_dev_ms, _ = device_kernels(step_on(device))
+    print(f"vo_frame_step_rgbd: {_ms(step_ms)} synced; {n_step} device activities, "
+          f"{step_dev_ms:.3f} ms device time, idle {1 - step_dev_ms / np.median(step_ms):.3f} "
+          f"of the median, on {card}")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({t_data:.1f} s making the "
+          f"sequence)")
+    checks = {
+        "mapping: state OK": state1 == TrackingState.OK,
+        "mapping: no frame lost": lost1 == 0,
+        "mapping: one step per keyframe after the first": n_steps1 == n_kfs1 - 1 >= 1,
+        "mapping: mapping_state_revert == 0": health["mapping_state_revert"] == 0,
+        "mapping: mapping_guarded <= max(3, steps // 25)":
+            health["mapping_guarded"] <= max(3, n_steps1 // 25),
+        "mapping: every keyframe has a BoW row": bow_rows == n_kfs1,
+        "mapping: one B=1 launch per frame": launches1 == 60,
+        "mapping: ATE < 0.08": ate1 < RGBD_ATE_GATE,
+        "localization: no keyframe, no mapping step": (n_kfs2, n_steps2) == (n_kfs1, n_steps1),
+        "localization: state OK, no frame lost": state2 == TrackingState.OK and lost2 == 0,
+        "localization: ATE < 0.08": ate2 < RGBD_ATE_GATE,
+        "deactivated: keyframes resume": sysm.n_kfs > n_kfs2 and state3 == TrackingState.OK,
+        "one B=1 launch per frame": launches == RGBD_FRAMES,
+        "orb_describe B=1 agrees": err1 <= ANGLE_ATOL and agree1 >= BIT_AGREE,
+        "frame step integers equal card vs CPU": ints_equal,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: rgbd phase failed: {failed}")
     return launches
 
 

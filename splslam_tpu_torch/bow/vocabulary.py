@@ -14,9 +14,9 @@ Vocabularies are `.npz` files in the reference's format (`level{i}`
 uint32 tables, `weights`, `k`, `depth`). The bundled ones live in the
 JAX package's `assets/` folder; `default_vocab_path` finds them by file
 path and they are read as data, never imported, so the 3.7 MB of
-vocabularies are not duplicated. Training a vocabulary and reading the
-ORB-SLAM2 text format are offline host tools that stay with the JAX
-package for now.
+vocabularies are not duplicated. `load_orbslam_txt` reads the reference's
+ORBvoc.txt into the same layout. Training a vocabulary is an offline host
+tool that stays with the JAX package for now.
 """
 
 from __future__ import annotations
@@ -73,6 +73,48 @@ def load(path: str, device) -> Vocab:
         int(z["k"]),
         depth,
     )
+
+
+def load_orbslam_txt(path: str, device) -> Vocab:
+    """Read the ORB-SLAM2 text vocabulary (ORBvoc.txt: header `k L s1 s2`,
+    then one node per line: `parent is_leaf d0..d31 weight`, node id = line
+    index + 1, the root is node 0; DBoW2 TemplatedVocabulary::
+    loadFromTextFile) into the complete-tree layout on `device`. Missing
+    branches get the all-ones sentinel descriptor; the leaves' weights
+    become the word weights."""
+    with open(path) as f:
+        header = f.readline().split()
+        k, depth = int(header[0]), int(header[1])
+        nodes = []
+        for line in f:
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            nodes.append((int(parts[0]),
+                          np.array([int(x) for x in parts[2:34]], np.uint8),
+                          float(parts[34])))
+    by_parent: dict[int, list[int]] = {}
+    for i, (p, _, _) in enumerate(nodes):
+        by_parent.setdefault(p, []).append(i)
+
+    level_desc = []
+    weights = np.zeros(k ** depth, np.float32)
+    frontier = [(0, 0)]  # (DBoW2 node id, complete-tree slot)
+    for l in range(depth):
+        table = np.full((k ** (l + 1), 32), 255, np.uint8)
+        next_frontier = []
+        for node_id, slot in frontier:
+            for j, kid in enumerate(by_parent.get(node_id, [])[:k]):
+                _, d, w = nodes[kid]
+                table[slot * k + j] = d
+                if l == depth - 1:
+                    weights[slot * k + j] = w
+                next_frontier.append((kid + 1, slot * k + j))
+        # 32 bytes -> 8 little-endian words: bit i of word j is bit i % 8
+        # of byte 4j + i // 8, the reference's packing
+        level_desc.append(torch.from_numpy(table.view("<u4").view(np.int32)).to(device))
+        frontier = next_frontier
+    return Vocab(tuple(level_desc), torch.from_numpy(weights).to(device), k, depth)
 
 
 def _popcount_dist(desc: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,22 @@
+"""EuRoC monocular driver (reference Examples/Monocular/mono_euroc.cc)."""
+
+from splslam_tpu_torch.examples._common import driver_args, run_sequence
+from splslam_tpu_torch.io.config import load_settings
+from splslam_tpu_torch.io.datasets import imread_gray, load_euroc
+from splslam_tpu_torch.slam.system import Sensor, System
+
+
+def main(argv=None, device: str | None = None) -> int:
+    a = driver_args("mono_euroc", "KeyFrameTrajectory.txt", argv)
+    st, _ = load_settings(a.settings)
+    left, _, ts = load_euroc(a.sequence)
+    sysm = System(st, Sensor.MONOCULAR, device or a.device)
+    feed = ((lambda p=p, t=t: sysm.track_mono(imread_gray(p), t))
+            for p, t in zip(left, ts))
+    run_sequence(sysm, feed, len(ts))
+    sysm.save_trajectory_tum(a.out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

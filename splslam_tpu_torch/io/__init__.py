@@ -1,1 +1,2 @@
-"""Host-side data for the port: synthetic sequences."""
+"""Host-side data for the port: synthetic sequences, the reference's YAML
+settings and the dataset loaders."""

@@ -9,6 +9,9 @@ splslam_tpu/ops/stereo.py).
      parabola fit at the minimum (reference src/Frame.cc:966-1038);
   4. outlier rejection at 1.5*1.4*median SSD (reference :1041-1054).
 
+`depth_from_rgbd` is the RGB-D counterpart: depth read from the
+registered depth image, a virtual right coordinate from it.
+
 The reference picks its samples with one-hot column matmuls over
 128-wide row tiles (a TPU gather workaround). Here the same samples are
 read with plain indexing: every column is clamped into the tile the
@@ -119,3 +122,19 @@ def stereo_match(featL, featR, imgL: torch.Tensor, imgR: torch.Tensor,
     depth = torch.where(ok, bf / torch.clamp(disparity, min=1e-6), -1.0)
     u_right = torch.where(ok, u_right, -1.0)
     return u_right, depth
+
+
+def depth_from_rgbd(feat, depth_map: torch.Tensor, bf: float,
+                    depth_factor: float = 1.0):
+    """RGB-D variant (reference Frame::ComputeStereoFromRGBD): read the
+    depth image at each keypoint (coordinates truncated, then clamped to
+    the image), scale it by `depth_factor` and synthesize a virtual right
+    coordinate. Returns (u_right [N], depth [N]), -1 where the depth is
+    not positive or the slot is invalid."""
+    xy = feat.xy.to(torch.int32)
+    H, W = depth_map.shape
+    idx = xy[:, 1].clamp(0, H - 1) * W + xy[:, 0].clamp(0, W - 1)
+    d = depth_map.reshape(-1)[idx.long()] * depth_factor
+    ok = feat.valid & (d > 0)
+    u_right = torch.where(ok, feat.xy[:, 0] - bf / torch.clamp(d, min=1e-6), -1.0)
+    return u_right, torch.where(ok, d, -1.0)

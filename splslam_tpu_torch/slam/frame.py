@@ -1,5 +1,5 @@
 """Per-frame feature container and the frame builders (port of
-splslam_tpu/slam/frame.py, monocular and stereo)."""
+splslam_tpu/slam/frame.py: monocular, stereo and RGB-D)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from splslam_tpu_torch.geometry.camera import Camera, undistort_points
 from splslam_tpu_torch.ops.lines import LineFeatures, extract_lines
 from splslam_tpu_torch.ops.orb import OrbFeatures, extract_orb, extract_orb_pair
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
-from splslam_tpu_torch.ops.stereo import stereo_match
+from splslam_tpu_torch.ops.stereo import depth_from_rgbd, stereo_match
 
 # (backend, n_octaves, min_length) of the line detector: the reference's
 # System.usingLsdFeature, Lineextractor.nLevels and min_line_length_ratio
@@ -83,3 +83,23 @@ def build_frame_stereo(
     lines = (_lines(img_left, line_capacity, line_cfg) if line_capacity > 1
              else LineFeatures.empty(line_capacity, img_left.device))
     return FrameData(feat=feat_l, u_right=u_right, depth=depth, lines=lines)
+
+
+def build_frame_rgbd(
+    image: torch.Tensor,
+    depth_map: torch.Tensor,
+    cam: Camera,
+    spec: PyramidSpec,
+    depth_factor: float = 1.0,
+    line_capacity: int = 1,
+    line_cfg: tuple = LINE_CFG,
+) -> FrameData:
+    """RGB-D frame (reference Frame ctor src/Frame.cc:157-210): ORB on the
+    one image (one kernel launch on a GPU), the registered depth read at
+    each keypoint, and lines when line_capacity > 1. Keypoints are not
+    undistorted, as in the JAX package (ROADMAP C)."""
+    feat = extract_orb(image, spec)
+    u_right, depth = depth_from_rgbd(feat, depth_map, cam.bf, depth_factor)
+    lines = (_lines(image, line_capacity, line_cfg) if line_capacity > 1
+             else LineFeatures.empty(line_capacity, image.device))
+    return FrameData(feat=feat, u_right=u_right, depth=depth, lines=lines)

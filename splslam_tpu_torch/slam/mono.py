@@ -363,5 +363,5 @@ def track_mono_impl(system, image: torch.Tensor, ts: float) -> np.ndarray:
         m_local=st.local_window, scale_factor=st.scale_factor,
         n_levels=st.n_levels, with_lines=st.using_line,
         line_capacity=s.line_cap, undistort=st.has_distortion,
-        line_cfg=s.line_cfg)
+        line_cfg=s.line_cfg, loc_mode=s.localization_only)
     return s._enqueue_step(new_step, stats, ts)

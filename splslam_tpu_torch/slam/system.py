@@ -1,9 +1,9 @@
 """Public facade + host-side control flow (port of
-splslam_tpu/slam/system.py, stereo and monocular).
+splslam_tpu/slam/system.py: stereo, monocular and RGB-D).
 
-Per frame the device runs `pipeline.vo_frame_step` (stereo) or
-`pipeline.vo_frame_step_mono` after the two-view bootstrap of
-`slam/mono.py` (monocular); the host reads a
+Per frame the device runs `pipeline.vo_frame_step` (stereo),
+`pipeline.vo_frame_step_rgbd` (RGB-D) or `pipeline.vo_frame_step_mono`
+after the two-view bootstrap of `slam/mono.py` (monocular); the host reads a
 packed 24-float stats vector one frame later (`async_depth`, which
 decides which frame becomes a keyframe, so it is kept) and applies the
 reference's control flow: the reference-keyframe fallback, the lost
@@ -21,19 +21,24 @@ kill-switch does; with `enable_loop_correction` it corrects them
 (essential graph, SearchAndFuse, global BA). A frame that fails the lost gate is relocalized against the
 keyframe database (`slam/reloc.py`) before it is declared LOST.
 
-Stereo and monocular run with the JAX package's defaults: local mapping,
+Every sensor runs with the JAX package's defaults: local mapping,
 relocalization and loop detection on, loop correction off; with lines
-(`using_line`) too, on either sensor: the line mapping stages, the EPnL
-relocalization seed and global BA with line edges. The ORB-SLAM2 text
-vocabulary and the RGB-D sensor raise NotImplementedError; nothing is
-dropped silently. `save_map` / `load_map` write and read the
-JAX package's checkpoint keys, so either package loads the other's map.
+(`using_line`) too: the line mapping stages, the EPnL relocalization seed
+and global BA with line edges. Localization mode
+(`activate_localization_mode`) tracks against the frozen map plus
+temporal points and inserts no keyframe. The vocabulary is a bundled
+`.npz` or the reference's ORBvoc.txt. `StageTimer` keeps the per-stage
+host wall clock (`System.timers`), `device_trace` a profiler trace.
+`save_map` / `load_map` write and read the JAX package's checkpoint keys,
+so either package loads the other's map.
 """
 
 from __future__ import annotations
 
 import enum
+import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,7 +49,7 @@ from splslam_tpu_torch.bow import vocabulary as V
 from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
 from splslam_tpu_torch.slam import mono, pipeline, reloc
-from splslam_tpu_torch.slam.frame import FrameData, build_frame_stereo
+from splslam_tpu_torch.slam.frame import FrameData, build_frame_rgbd, build_frame_stereo
 from splslam_tpu_torch.slam.local_mapping import LocalMapper
 from splslam_tpu_torch.slam.loop_closing import LoopCloser
 from splslam_tpu_torch.slam.map import MapState
@@ -96,11 +101,17 @@ class Settings:
     fps: float = 30.0
     width: int = 640
     height: int = 480
+    rgb: int = 1                    # Camera.RGB: a no-op for grayscale input
     th_depth: float = 35.0
+    depth_map_factor: float = 1.0   # 1 / DepthMapFactor: depth units -> metres
     # ORBextractor.*
     n_features: int = 1000
     scale_factor: float = 1.2
     n_levels: int = 8
+    # read from the YAML and unused, as in the JAX package: the FAST
+    # threshold is fixed (ops/orb.py::detect)
+    ini_th_fast: float = 20.0
+    min_th_fast: float = 7.0
     # Lineextractor.* / System.usingLine / System.usingLsdFeature
     using_line: bool = False
     line_features: int = 128
@@ -115,6 +126,7 @@ class Settings:
     # mapping: two 5-iteration local-BA rounds with a chi2
     # re-classification between them (reference Optimizer.cc:2713-2764)
     enable_local_mapping: bool = True
+    local_ba_window: int = 8   # unused, as in the JAX package (mapping_ops.N_WINDOW)
     local_ba_rounds: int = 2
     local_ba_iters: int = 5
     # relocalization / loop detection
@@ -152,19 +164,69 @@ class _TrajEntry:
     Tcw: np.ndarray     # absolute (online estimate)
 
 
-def _check_slice(settings: Settings, sensor: Sensor):
-    if sensor == Sensor.RGBD:
-        raise NotImplementedError("RGBD sensor: later slice")
-    if (settings.vocabulary_path or "").endswith(".txt"):
-        raise NotImplementedError("ORB-SLAM2 text vocabulary: later slice")
+class StageTimer:
+    """Per-stage host wall-clock accumulator (the reference's PL_SLAM::Timer
+    rows, src/Tracking.cc:381-413, src/LocalMapping.cc:139-235). On a GPU a
+    row times the host's side: what it enqueues, and the stats it waits for
+    one frame late."""
+
+    def __init__(self):
+        self.samples: dict[str, list[float]] = {}
+
+    def add(self, stage: str, ms: float):
+        self.samples.setdefault(stage, []).append(ms)
+
+    @contextmanager
+    def time(self, stage: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(stage, (time.perf_counter() - t0) * 1e3)
+
+    def report(self) -> dict:
+        out = {}
+        for k, v in self.samples.items():
+            arr = np.array(v)
+            out[k] = {"mean_ms": float(arr.mean()),
+                      "median_ms": float(np.median(arr)), "n": len(v)}
+        return out
+
+    def pretty(self) -> str:
+        lines = ["stage                         mean ms   median ms      n"]
+        for k, s in self.report().items():
+            lines.append(f"{k:<28}{s['mean_ms']:>10.2f}{s['median_ms']:>12.2f}"
+                         f"{s['n']:>7d}")
+        return "\n".join(lines)
+
+
+@contextmanager
+def device_trace(log_dir: str):
+    """Record a torch.profiler trace (host and, on a CUDA build, device
+    activities) around a block of SLAM calls, written for TensorBoard
+    (`tensorboard --logdir log_dir`):
+
+        with device_trace("slam_trace"):
+            for i, (l, r) in enumerate(frames):
+                slam.track_stereo(l, r, i * 0.1)
+    """
+    from torch.profiler import profile, supported_activities, tensorboard_trace_handler
+
+    with profile(activities=supported_activities(),
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def _load_vocab(path: str, device) -> V.Vocab:
+    """A vocabulary `.npz`, or the reference's ORBvoc.txt text format."""
+    return (V.load_orbslam_txt if path.endswith(".txt") else V.load)(path, device)
 
 
 class System:
     """SPL-SLAM on PyTorch: `System(settings, sensor, device)` with
-    `Sensor.STEREO` or `Sensor.MONOCULAR`."""
+    `Sensor.STEREO`, `Sensor.RGBD` or `Sensor.MONOCULAR`."""
 
     def __init__(self, settings: Settings, sensor: Sensor, device):
-        _check_slice(settings, sensor)
         self.settings = settings
         self.sensor = sensor
         self.device = torch.device(device)
@@ -176,6 +238,10 @@ class System:
         self.scales = torch.tensor(self.spec.scales, dtype=torch.float32,
                                    device=self.device)
         self.state = TrackingState.NO_IMAGES_YET
+        self.localization_only = False
+        # stereo and RGB-D: the stereo keyframe policy, and keyframes that
+        # create landmarks from depth
+        self.has_depth = sensor in (Sensor.STEREO, Sensor.RGBD)
         self.th_depth_m = (
             float(settings.bf) / settings.fx * settings.th_depth
             if settings.bf > 0 else 1e9
@@ -189,8 +255,8 @@ class System:
                          int(settings.line_n_levels),
                          float(ml) if ml > 0 else 24.0)
         # the BoW vocabulary (None -> the largest bundled one)
-        self.vocab = (V.load(settings.vocabulary_path or V.default_vocab_path(),
-                             self.device)
+        self.vocab = (_load_vocab(settings.vocabulary_path or V.default_vocab_path(),
+                                  self.device)
                       if settings.enable_relocalization else None)
         self._reset_runtime()
 
@@ -215,6 +281,7 @@ class System:
         self._last_reloc_fid = -(10 ** 9)
         self.mono_state = None   # the monocular bootstrap's reference frame
         self.init_used_h = None  # which two-view model won mono init
+        self.timers = StageTimer()
         # The keyframe database: one sparse BoW row per keyframe slot
         # (reference KeyFrameDatabase, include/KeyFrameDatabase.h:66).
         if self.vocab is not None:
@@ -237,6 +304,10 @@ class System:
     def track_stereo(self, img_left, img_right, timestamp: float) -> np.ndarray:
         """Track one rectified stereo pair (8-bit grayscale); returns the
         latest consumed Tcw (one frame behind, see `async_depth`)."""
+        with self.timers.time("Tracking total / frame"):
+            return self._track_stereo(img_left, img_right, timestamp)
+
+    def _track_stereo(self, img_left, img_right, timestamp: float) -> np.ndarray:
         imgs = torch.from_numpy(
             np.stack([np.asarray(img_left), np.asarray(img_right)])
             .astype(np.uint8)
@@ -267,6 +338,36 @@ class System:
             scale_factor=self.settings.scale_factor,
             n_levels=self.settings.n_levels,
             line_capacity=self.line_cap, line_cfg=self.line_cfg,
+            loc_mode=self.localization_only,
+        )
+        return self._enqueue_step(new_step, stats, timestamp)
+
+    def track_rgbd(self, img, depth, timestamp: float) -> np.ndarray:
+        """Track one registered RGB-D pair: an 8-bit grayscale image and a
+        depth map in the sensor's units (`depth_map_factor` scales it to
+        metres); returns the latest consumed Tcw (one frame behind, see
+        `async_depth`). As in the JAX package there is no branch for LOST
+        without tracker state (ROADMAP C)."""
+        with self.timers.time("Tracking total / frame"):
+            return self._track_rgbd(img, depth, timestamp)
+
+    def _track_rgbd(self, img, depth, timestamp: float) -> np.ndarray:
+        image = torch.from_numpy(np.asarray(img).astype(np.uint8)).to(self.device)
+        depth_map = torch.from_numpy(np.asarray(depth, np.float32)).to(self.device)
+        st = self.settings
+        if self.state in (TrackingState.NO_IMAGES_YET,
+                          TrackingState.NOT_INITIALIZED):
+            frame = build_frame_rgbd(image.float(), depth_map, self.cam, self.spec,
+                                     st.depth_map_factor, self.line_cap,
+                                     self.line_cfg)
+            self._stereo_initialize(frame, timestamp)
+            return self.last_Tcw_np.copy()
+        self.map, new_step, stats = pipeline.vo_frame_step_rgbd(
+            image, depth_map, self.map, self.step, self.th_depth_m, self.ref_kf,
+            self.cam, self.spec, self.scales, m_local=st.local_window,
+            scale_factor=st.scale_factor, n_levels=st.n_levels,
+            depth_factor=st.depth_map_factor, line_capacity=self.line_cap,
+            line_cfg=self.line_cfg, loc_mode=self.localization_only,
         )
         return self._enqueue_step(new_step, stats, timestamp)
 
@@ -274,8 +375,17 @@ class System:
         """Track one monocular image (8-bit grayscale); returns the latest
         consumed Tcw (one frame behind after initialization, see
         `async_depth`; identity until the two-view bootstrap succeeds)."""
-        image = torch.from_numpy(np.asarray(img).astype(np.uint8)).to(self.device)
-        return mono.track_mono_impl(self, image, timestamp)
+        with self.timers.time("Tracking total / frame"):
+            image = torch.from_numpy(np.asarray(img).astype(np.uint8)).to(self.device)
+            return mono.track_mono_impl(self, image, timestamp)
+
+    def activate_localization_mode(self):
+        """Track against the map without inserting keyframes (reference
+        System::ActivateLocalizationMode)."""
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
 
     def get_tracking_state(self) -> TrackingState:
         self.drain()
@@ -306,6 +416,11 @@ class System:
     def reset(self):
         self._reset_runtime()
         self.state = TrackingState.NO_IMAGES_YET
+
+    def shutdown(self):
+        """Consume every in-flight frame and apply the mapper's pending
+        result (reference System::Shutdown)."""
+        self.drain()
 
     # ------------------------------------------------------------------
     # per-frame control flow (stats consumed `async_depth` frames late)
@@ -371,7 +486,7 @@ class System:
 
         self._frames_lost = 0
         self.state = TrackingState.OK
-        if self._need_new_keyframe(stats, n_in):
+        if not self.localization_only and self._need_new_keyframe(stats, n_in):
             self._create_keyframe(step_state, Tcw_np, ts)
         else:
             self.frames_since_kf += 1
@@ -484,7 +599,7 @@ class System:
         if self.settings.force_kf_every > 0:
             return self.frames_since_kf >= self.settings.force_kf_every
         max_frames = int(self.settings.fps)
-        is_stereo = self.sensor == Sensor.STEREO
+        is_stereo = self.has_depth
         n_tracked_close = int(stats[pipeline.S_CLOSE_TRACKED])
         n_untracked_close = int(stats[pipeline.S_CLOSE_UNTRACKED])
         need_close = is_stereo and (n_tracked_close < 100) and (n_untracked_close > 70)
@@ -511,24 +626,27 @@ class System:
 
     def _create_keyframe(self, step_state: StepState, Tcw_np: np.ndarray,
                          ts: float):
-        self.map, new_state, out = pipeline.add_keyframe_step(
-            self.map, step_state, self.frame_id, ts, self.th_depth_m, self.cam,
-            scale_factor=self.settings.scale_factor,
-            n_levels=self.settings.n_levels, max_new=200,
-            is_stereo=self.sensor == Sensor.STEREO,
-        )
-        kf = self.n_kfs  # keyframes are appended densely
-        self.n_kfs += 1
-        self.ref_kf = kf
-        self.frames_since_kf = 0
-        self.kf_pose_host[kf] = Tcw_np.copy()
-        if step_state is self.step:
-            self.step = new_state
-        self._pending_kf_out = out
-        self._register_kf_bow(kf, step_state.frame)
-        self.mapper.on_keyframe(kf)
+        with self.timers.time("KeyFrame insertion"):
+            self.map, new_state, out = pipeline.add_keyframe_step(
+                self.map, step_state, self.frame_id, ts, self.th_depth_m, self.cam,
+                scale_factor=self.settings.scale_factor,
+                n_levels=self.settings.n_levels, max_new=200,
+                is_stereo=self.has_depth,
+            )
+            kf = self.n_kfs  # keyframes are appended densely
+            self.n_kfs += 1
+            self.ref_kf = kf
+            self.frames_since_kf = 0
+            self.kf_pose_host[kf] = Tcw_np.copy()
+            if step_state is self.step:
+                self.step = new_state
+            self._pending_kf_out = out
+            self._register_kf_bow(kf, step_state.frame)
+        with self.timers.time("Mapping total / keyframe"):
+            self.mapper.on_keyframe(kf)
         if self.settings.enable_loop_closing:
-            self.loop_closer.on_keyframe(kf)
+            with self.timers.time("Loop detection / keyframe"):
+                self.loop_closer.on_keyframe(kf)
 
     def _resolve_kf_out(self):
         if self._pending_kf_out is not None:
@@ -561,6 +679,23 @@ class System:
             self.kf_pose_host.pop(cid, None)
             if self.ref_kf == cid:
                 self.ref_kf = kf
+
+    def get_tracked_map_points(self) -> np.ndarray:
+        """World positions of the landmarks tracked in the current frame
+        (reference System::GetTrackedMapPoints), [n, 3]."""
+        self.drain()
+        if self.step is None:
+            return np.zeros((0, 3), np.float32)
+        gid = self.step.lm_gid.cpu().numpy()
+        return self.step.lm_xyz.cpu().numpy()[gid >= 0]
+
+    def get_tracked_keypoints(self) -> np.ndarray:
+        """Keypoints of the current frame, every slot's xy (reference
+        System::GetTrackedKeyPointsUn), [N, 2]."""
+        self.drain()
+        if self.step is None:
+            return np.zeros((0, 2), np.float32)
+        return self.step.frame.feat.xy.cpu().numpy()
 
     # ------------------------------------------------------------------
     # trajectory export (reference System.cc:340-540)

@@ -11,8 +11,11 @@ run, and a keyframe insertion and a mono frame step that wait for
 nothing; a stereo frame step that waits for nothing; and the point+line
 back end from one CPU-built mono line map: a line mapping step and
 global BA with line edges card against CPU, and a line mapping step and
-a line relocalization attempt that wait for nothing. Every test skips
-on a host without a card.
+a line relocalization attempt that wait for nothing; an RGB-D frame step,
+with and without localization mode's temporal points, card against CPU
+from one CPU-built state and waiting for nothing, one B = 1 launch a
+built RGB-D frame, and `device_trace` recording the card's kernels.
+Every test skips on a host without a card.
 
 This file imports no JAX (a GPU host need not have it, and
 tests/conftest.py imports it), so on a GPU host run it as
@@ -41,6 +44,8 @@ multiply-adds differ on the card), LBD bits >= 99.5% equal. Mono run:
 the same init frame, model and keyframes, poses within 2e-2 (the
 tolerance of the port against the JAX package, tests/test_torch_mono.py),
 the RANSAC hypotheses drawn on the CPU for both devices."""
+
+import json
 
 import numpy as np
 import pytest
@@ -890,3 +895,130 @@ def test_line_mapping_step_and_reloc_do_not_sync(cuda, line_map):
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(stats).all()) and int(stats[TMO.MSTAT_REVERT]) == 0
     assert int(out[1]) >= 50
+
+
+# ---------------------------------------------------------------------
+# RGB-D and localization mode: one frame step on the card and on the
+# CPU from identical copies of a CPU-built state
+# ---------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def rgbd_state():
+    """A CPU RGB-D System after 11 frames of tests/test_torch_rgbd.py's
+    forward sequence (relocalization and loop detection off), and the
+    next frame."""
+    from splslam_tpu_torch.io.synthetic import make_rgbd_sequence
+
+    if not torch.cuda.is_available():     # before the CPU run
+        pytest.skip("needs a CUDA device")
+    K, bf, frames, _ = make_rgbd_sequence(n_frames=12, motion="forward", width=320,
+                                          height=240)
+    st = _settings(K, bf, enable_local_mapping=False, enable_relocalization=False,
+                   enable_loop_closing=False)
+    sysm = TS.System(st, TS.Sensor.RGBD, "cpu")
+    for i, (img, depth) in enumerate(frames[:-1]):
+        sysm.track_rgbd(img, depth, i * 0.1)
+    sysm.drain()
+    assert sysm.get_tracking_state() == TS.TrackingState.OK
+    img, depth = frames[-1]
+    return sysm, (np.asarray(img).astype(np.uint8), np.asarray(depth, np.float32))
+
+
+def _step_to(step, device):
+    from splslam_tpu_torch import convert
+
+    return convert.step_state_from_numpy(convert.step_state_to_numpy(step), device)
+
+
+def _rgbd_step(sysm, img, depth, step, map_state, loc_mode=False):
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    st = sysm.settings
+    return PL.vo_frame_step_rgbd(
+        img, depth, map_state, step, sysm.th_depth_m, sysm.ref_kf, sysm.cam, sysm.spec,
+        sysm.scales.to(img.device), m_local=st.local_window,
+        scale_factor=st.scale_factor, n_levels=st.n_levels,
+        depth_factor=st.depth_map_factor, line_capacity=sysm.line_cap,
+        line_cfg=sysm.line_cfg, loc_mode=loc_mode)
+
+
+@pytest.mark.parametrize("loc_mode", [False, True])
+def test_rgbd_frame_step_gpu_matches_cpu(cuda, rgbd_state, loc_mode):
+    """`vo_frame_step_rgbd`, and with localization mode's temporal points,
+    from identical copies of one state: counts and landmark ids equal,
+    pose within 1e-4; one B = 1 kernel launch on the card."""
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    sysm, (img, depth) = rgbd_state
+    outs = []
+    for dev in ("cpu", cuda):
+        before = OK.orb_describe.launches
+        _, step, stats = _rgbd_step(sysm, torch.from_numpy(img).to(dev),
+                                    torch.from_numpy(depth).to(dev),
+                                    _step_to(sysm.step, dev), sysm.map.to(dev), loc_mode)
+        outs.append((step, stats.cpu(), OK.orb_describe.launches - before))
+    (sc, tc, lc), (sg, tg, lg) = outs
+    print(f"rgbd step (loc_mode={loc_mode}) card vs CPU: pose max abs err "
+          f"{float((tg[:16] - tc[:16]).abs().max()):.3e}, counts {tg[16:].tolist()}")
+    assert (lc, lg) == (0, 1)
+    torch.testing.assert_close(tg[16:], tc[16:], rtol=0, atol=0)
+    torch.testing.assert_close(tg[:16], tc[:16], rtol=0, atol=1e-4)
+    torch.testing.assert_close(sg.lm_gid.cpu(), sc.lm_gid, rtol=0, atol=0)
+    assert int(tc[PL.S_N_IN]) > 100 and int(sc.lm_gid.min()) >= -1
+
+
+@pytest.mark.parametrize("loc_mode", [False, True])
+def test_rgbd_frame_step_does_not_sync(cuda, rgbd_state, loc_mode):
+    """One RGB-D frame (ORB at B = 1, the depth lookup, tracking, with or
+    without the temporal points, the counter updates) reads nothing back
+    to the host."""
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    sysm, (img, depth) = rgbd_state
+    img, depth = torch.from_numpy(img).to(cuda), torch.from_numpy(depth).to(cuda)
+    step, m = _step_to(sysm.step, cuda), sysm.map.to(cuda)
+    sysm.scales = sysm.scales.to(cuda)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, stats = _rgbd_step(sysm, img, depth, step, m, loc_mode)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        sysm.scales = sysm.scales.cpu()
+    assert bool(torch.isfinite(stats).all()) and int(stats[PL.S_N_IN]) > 100
+
+
+def test_build_frame_rgbd_runs_the_kernel_once(cuda, rgbd_state):
+    """One B = 1 launch an RGB-D frame; keypoints and depth as the CPU
+    build's."""
+    from splslam_tpu_torch.slam.frame import build_frame_rgbd
+
+    sysm, (img, depth) = rgbd_state
+    args = (sysm.cam, sysm.spec, sysm.settings.depth_map_factor)
+    fc = build_frame_rgbd(torch.from_numpy(img).float(), torch.from_numpy(depth), *args)
+    before = OK.orb_describe.launches
+    fg = build_frame_rgbd(torch.from_numpy(img).to(cuda).float(),
+                          torch.from_numpy(depth).to(cuda), *args)
+    assert OK.orb_describe.launches - before == 1
+    for name in ("xy", "octave", "valid"):
+        torch.testing.assert_close(getattr(fg.feat, name).cpu(), getattr(fc.feat, name),
+                                   rtol=0, atol=0, msg=name)
+    torch.testing.assert_close(fg.depth.cpu(), fc.depth, rtol=1e-6, atol=0)
+    assert bit_agreement(fg.feat.desc, fc.feat.desc) >= BIT_AGREE
+
+
+def test_device_trace_records_the_card(cuda, tmp_path):
+    """`device_trace` on the card: its TensorBoard trace holds the kernel
+    that ran inside the block."""
+    spec, levels, xy = edge_case_inputs(4, 1, seed=0)
+    levels = [[torch.from_numpy(x).to(cuda) for x in pyr] for pyr in levels]
+    xy = torch.from_numpy(xy).to(cuda)
+    with TS.device_trace(str(tmp_path)):
+        OK.orb_describe(levels, xy, spec)
+        torch.cuda.synchronize()
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "orb_describe" in e.get("name", "")
+               for e in events)

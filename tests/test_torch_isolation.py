@@ -1,6 +1,7 @@
 """The PyTorch port stands without JAX: importing it (and chip_smoke.py)
-loads no jax module, its sources, chip_smoke.py and the card's test file
-import nothing of the JAX package, and chip_smoke.py fails — printing no
+loads no jax module, nor PyYAML or OpenCV (the YAML and image loaders
+import them where they read a file), its sources, chip_smoke.py and the
+card's test file import nothing of the JAX package, and chip_smoke.py fails — printing no
 result — on a host without a CUDA device (there is no CPU fallback).
 
 The port reads the bundled BoW vocabularies, `.npz` files in the JAX
@@ -38,7 +39,8 @@ def test_importing_the_port_loads_no_jax():
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'splslam_tpu' or m.startswith('splslam_tpu.')]\n"
+        "       or m == 'splslam_tpu' or m.startswith('splslam_tpu.')\n"
+        "       or m.split('.')[0] in ('yaml', 'cv2')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -58,6 +60,11 @@ def test_port_sources_import_no_jax_module():
     assert {"splslam_tpu_torch/bow/vocabulary.py", "splslam_tpu_torch/slam/reloc.py",
             "splslam_tpu_torch/slam/loop_closing.py",
             "splslam_tpu_torch/optim/sim3.py"} <= names
+    # the entry points: settings, dataset loaders and the drivers
+    assert {"splslam_tpu_torch/io/config.py", "splslam_tpu_torch/io/datasets.py",
+            "splslam_tpu_torch/examples/_common.py",
+            "splslam_tpu_torch/examples/rgbd_tum.py",
+            "splslam_tpu_torch/examples/stereo_mynt.py"} <= names
     for p in files:
         for m in pat.findall(p.read_text()):
             assert m in allowed, f"{p.relative_to(ROOT)} imports {m}"

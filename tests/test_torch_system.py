@@ -15,12 +15,13 @@ of the JAX run — float32 differences accumulate over the sequence
 BA moves the keyframe poses the frames are tracked against); no
 non-finite BA revert (`mapping_state_revert == 0`) on either side;
 equal trajectory export line counts; after a kidnap, the replayed view
-relocalizes within 0.05 m of ground truth (the JAX gate). Slice limits
-raise NotImplementedError (RGB-D; the text vocabulary); lines construct
-with every back-end stage, and loop correction is a setting
-(tests/test_torch_correction.py drives it). The frame builders with
-lines against the reference's, and the point+line lost gate's truth
-table (tests/test_track_gates.py)."""
+relocalizes within 0.05 m of ground truth (the JAX gate). Lines
+construct with every back-end stage, and loop correction is a setting
+(tests/test_torch_correction.py drives it); RGB-D and the text
+vocabulary are tested in tests/test_torch_rgbd.py and
+tests/test_torch_config.py. `build_frame_stereo` and `build_frame_mono`
+with lines against the reference's, and the point+line lost gate's
+truth table (tests/test_track_gates.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -235,18 +236,6 @@ def test_reset(runs):
 
 
 NO_STAGES = dict(enable_local_mapping=False, **NO_RELOC)
-
-
-@pytest.mark.parametrize("change", [
-    dict(sensor=TS.Sensor.RGBD),
-    dict(vocabulary_path="ORBvoc.txt"),
-])
-def test_later_slices_raise(change):
-    """RGB-D and the text vocabulary are later slices."""
-    change = dict(change)
-    sensor = change.pop("sensor", TS.Sensor.STEREO)
-    with pytest.raises(NotImplementedError):
-        TS.System(TS.Settings(**change), sensor, "cpu")
 
 
 @pytest.mark.parametrize("change", [

@@ -10,6 +10,9 @@ motion-model and local-window settings), and `assemble_line_window` and
 from frames 0 and 1 of the grid sequence (its `create_initial_map`),
 tracking frame 2.
 
+Localization mode: the temporal points of `_track_body` and the whole
+stereo step with `loc_mode` on the same state.
+
 Tolerances: landmark and map-line ids, inlier masks, counts and window
 ids exact; poses within 1e-4 (float32 sums in another order, and XLA's
 fused multiply-adds); landmark positions within 1e-5."""
@@ -209,6 +212,78 @@ def test_vo_frame_step(ref):
     for f in ("n_visible", "n_found"):
         np.testing.assert_array_equal(getattr(tm.pts, f).numpy(),
                                       np.asarray(getattr(jm.pts, f)), err_msg=f)
+
+
+def test_track_body_localization_mode(ref, monkeypatch):
+    """Localization mode on identical state: the temporal points (gid -2,
+    the previous frame's untracked depth features unprojected to world)
+    that `_track_body` hands the tracking step, and its outputs. The
+    reference's `_track_body` runs eagerly here, recording the arguments
+    of its (jitted) tracking step."""
+    seen = {}
+    track = JP.track_step
+
+    def record(*args, **kw):
+        seen["xyz"], seen["gid"] = np.asarray(args[7]), np.asarray(args[8])
+        return track(*args, **kw)
+
+    monkeypatch.setattr(JP, "track_step", record)
+    args = (ref.sys.th_depth_m, ref.sys.ref_kf)
+    _, js, jstats = JP._track_body(
+        ref.frame, jax.tree.map(jnp.array, ref.map), ref.step, jnp.float32(args[0]),
+        jnp.int32(args[1]), ref.jcam, jnp.asarray(ref.scales), M_LOCAL, 1.2, 4,
+        loc_mode=True)[:3]
+    jstats = jstats[0]
+    prev = convert.step_state_from_numpy(ref.step, "cpu")
+    gid, xyz = TP._temporal_points(prev, ref.tcam)
+    gid, xyz = gid.numpy(), xyz.numpy()
+    n_tmp = int((seen["gid"] == -2).sum())
+    assert n_tmp == int((gid == -2).sum()) > 50
+    np.testing.assert_array_equal(gid, seen["gid"])
+    np.testing.assert_allclose(xyz, seen["xyz"], atol=1e-5)
+    _, ts, tstats, _, _ = TP._track_body(
+        convert.frame_from_numpy(ref.frame, "cpu"), fresh_map(ref), prev, args[0],
+        args[1], ref.tcam, torch.from_numpy(ref.scales), M_LOCAL, 1.2, 4,
+        loc_mode=True)
+    jstats = np.asarray(jstats)
+    np.testing.assert_array_equal(tstats.numpy()[16:], jstats[16:])
+    np.testing.assert_allclose(tstats.numpy()[:16], jstats[:16], atol=1e-4)
+    np.testing.assert_array_equal(ts.lm_gid.numpy(), np.asarray(js.lm_gid))
+    assert ts.lm_gid.min() >= -1
+
+
+def test_vo_frame_step_localization_mode(ref):
+    """The whole stereo step with `loc_mode` against the reference's jitted
+    step: the counts (the motion-model matches include temporal points)
+    and landmark ids exact, no -2 in the new associations, pose within
+    1e-4. With `loc_mode=False` the step is the default step, bit for bit."""
+    args = (ref.sys.th_depth_m, ref.sys.ref_kf)
+    _, js, jstats = JP.vo_frame_step(
+        jnp.asarray(ref.imgs), jax.tree.map(jnp.array, ref.map), ref.step,
+        jnp.float32(args[0]), jnp.int32(args[1]), ref.jcam, ref.spec,
+        jnp.asarray(ref.scales), m_local=M_LOCAL, scale_factor=1.2, n_levels=4,
+        line_capacity=1, loc_mode=jnp.bool_(True))
+    spec = TP.PyramidSpec.create(H, W, 4, 1.2, 600)
+
+    def port_step(**kw):
+        return TP.vo_frame_step(
+            torch.from_numpy(ref.imgs), fresh_map(ref),
+            convert.step_state_from_numpy(ref.step, "cpu"), args[0], args[1],
+            ref.tcam, spec, torch.from_numpy(ref.scales), m_local=M_LOCAL,
+            scale_factor=1.2, n_levels=4, **kw)
+
+    _, ts, tstats = port_step(loc_mode=True)
+    jstats = np.asarray(jstats)
+    np.testing.assert_array_equal(tstats.numpy()[16:], jstats[16:])
+    np.testing.assert_allclose(tstats.numpy()[:16], jstats[:16], atol=1e-4)
+    np.testing.assert_array_equal(ts.lm_gid.numpy(), np.asarray(js.lm_gid))
+    assert ts.lm_gid.min() >= -1
+    m_off, s_off, st_off = port_step(loc_mode=False)
+    m_def, s_def, st_def = port_step()
+    assert torch.equal(st_off, st_def) and torch.equal(s_off.lm_gid, s_def.lm_gid)
+    assert torch.equal(s_off.Tcw, s_def.Tcw)
+    assert torch.equal(m_off.pts.n_visible, m_def.pts.n_visible)
+    assert st_off[TP.S_N_MM] < tstats[TP.S_N_MM]
 
 
 @pytest.mark.parametrize("max_new,depth_limit", [(200, None), (1000, 1e9)])
