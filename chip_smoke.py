@@ -141,7 +141,42 @@ Phases, each fatal on failure:
      launch on frame 30 against its plain version, and one
      `vo_frame_step_rgbd` on the card against the CPU from identical
      copies of the final state (integers equal), with its synced ms,
-     device activities and idle share.
+     device activities and idle share;
+ 12. batched stereo at bench.py:45-65's configuration (phase 4's, with
+     relocalization and loop detection on as bench.py keeps them,
+     `min_kf_gap=64`, `batch_defer_stats` at depth 3): frame 0 through
+     `track_stereo`, then two batches of 32 of bench.py's forward leg
+     (frames 1-64, the leg phase 4 starts), staged by `upload_batch`
+     before the timed calls and both still in flight until the drain:
+     OK, no frame lost, ATE within 1% of the path, 64 + 1 kernel
+     launches, every position within 1e-3 m of a per-frame run of the
+     same 65 frames at the same settings (the gap printed); ms/frame a
+     batch (the call's wall / 32, bench.py's measure) and with the drain,
+     beside the per-frame run's median and phase 4's. Then
+     tests/test_reloc.py's mid-batch kidnap at its own settings (320x240,
+     mapping, relocalization and loop detection on, stats deferred): OK,
+     at most 1 of the last 8 frames lost, the last within 0.08 m; and a
+     batch lost to its end with the next in flight (depth 2): one replay
+     that takes the newer batch with it, OK within 0.08 m; one launch a
+     frame built;
+ 13. batched mono point+line at bench_mono.py:80-128's configuration
+     (phase 9's 72 frames and settings with bench_mono.py's relocalization
+     and loop detection on, B = 8, stats deferred at depth 3):
+     `track_mono` one frame at a time until the two-view init, then
+     `track_mono_batch` on batches staged before the timed calls: OK, no
+     frame lost, no replay, Sim3-aligned ATE under 0.15
+     (tests/test_torch_mono.py's gate), map lines tracked with a median
+     of line inliers a frame no lower than phase 9's per-frame one (with
+     mapping off this map keeps the init's few lines, and that median is
+     0), one B = 1 launch a frame built; ms/frame a batch and with the
+     drain;
+ 14. bench_mapping.py's synthetic map (`io/synth_map.py`, 12 keyframes of
+     2000 features at 1241x376) built on the card; one `mapping_step` on
+     each of 3 copies after a warm-up (synced ms, median), one under the
+     profiler (device
+     activities, idle share), and one on the CPU's build: card and CPU
+     agree on the step's integers (landmark count, valid points and
+     keyframes, culled keyframe ids, BA inlier edges, revert).
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -325,10 +360,13 @@ def main() -> None:
           f"{blocks * 4} warps of 64")
 
     # ---- 3. kernel vs plain at main-path shapes, both images ----
-    K, bf, frames, gt = make_stereo_sequence(
-        n_frames=N_FRAMES, width=KITTI_W, height=KITTI_H,
+    # bench.py's forward leg (a frame's pose is its own, whatever the
+    # length): phases 4-6 take its first 40 frames, phase 12 its first 65
+    K, bf, leg, leg_gt = make_stereo_sequence(
+        n_frames=BATCH_FRAMES, width=KITTI_W, height=KITTI_H,
         fx=718.0, baseline=0.54, motion="forward", seed=3,
     )
+    frames, gt = leg[:N_FRAMES], leg_gt[:N_FRAMES]
     st = kitti_settings(Settings, K, bf)
     spec = PyramidSpec.create(KITTI_H, KITTI_W, st.n_levels, st.scale_factor,
                               st.n_features)
@@ -413,6 +451,9 @@ def main() -> None:
     mono_launches, mono_ln_in = mono_phase(card)
     backend_launches = line_backend_phase(card, mono_ln_in)
     rgbd_launches = rgbd_phase(card)
+    batch_launches = batch_phase(st, leg, leg_gt, card, ms)
+    mono_batch_launches = mono_batch_phase(card, mono_ln_in)
+    synth_map_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
@@ -421,7 +462,7 @@ def main() -> None:
         "replaces": "splslam_tpu/ops/orb_pallas.py:172",
         "launches": (launches + map_launches + reloc_launches + loop_launches
                      + live_launches + mono_launches + backend_launches
-                     + rgbd_launches),
+                     + rgbd_launches + batch_launches + mono_batch_launches),
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -672,7 +713,7 @@ def reloc_phase(st, frames, gt, card, map_frame_ms, device="cuda", view=20):
     def instrument(sysm):
         try_reloc = _timed(sysm._try_relocalize, ms["reloc"], device)
 
-        def checked_reloc(step_state, ts):
+        def checked_reloc(step_state, ts, fid=None):
             # the candidate order, recomputed: the three best BoW scores
             f, v, kfs = step_state.frame, sysm.vocab, sysm.map.kfs
             q = V.query_bow(v.level_desc, v.weights, v.k, v.depth, f.feat.desc,
@@ -681,7 +722,7 @@ def reloc_phase(st, frames, gt, card, map_frame_ms, device="cuda", view=20):
                                 torch.zeros_like(kfs.valid)).cpu().numpy()
             order = [int(c) for c in np.argsort(sc)[::-1][:3] if c < sysm.n_kfs]
             attempts.append([])
-            ok = try_reloc(step_state, ts)
+            ok = try_reloc(step_state, ts, fid)
             if ok:
                 won = order[next(i for i, x in enumerate(attempts[-1])
                                  if x >= st.reloc_min_inliers)]
@@ -954,8 +995,8 @@ LINE_GUARD_GATE = 36 // 3 + 3
 
 
 def mono_settings(Settings, K, using_line: bool):
-    """bench_mono.py's configuration (bench_mono.py:55-92), one frame at a
-    time (no batching)."""
+    """bench_mono.py's configuration (bench_mono.py:55-92), tracking only
+    (phase 13 turns relocalization, loop detection and batching on)."""
     return Settings(
         fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
         cy=float(K[1, 2]), bf=0.0, width=MONO_W, height=MONO_H,
@@ -1595,6 +1636,315 @@ def rgbd_phase(card, device="cuda"):
     if failed:
         raise SystemExit(f"chip_smoke: rgbd phase failed: {failed}")
     return launches
+
+
+BATCH = 32                     # bench.py:85
+BATCH_DEPTH = 3                # bench.py:63
+BATCH_FRAMES = 1 + 2 * BATCH   # the bootstrap frame, then two batches
+BATCH_POSE_GAP = 1e-3          # m, batched against per-frame on the card
+KIDNAP_GATE = 0.08             # tests/test_reloc.py
+
+
+def batch_settings(st):
+    """bench.py:45-65: phase 4's configuration with bench.py's
+    relocalization and loop detection (the defaults), a 64-frame minimum
+    keyframe gap, and each batch's stats read three batches late."""
+    return dataclasses.replace(st, enable_relocalization=True,
+                               enable_loop_closing=True, min_kf_gap=64,
+                               batch_defer_stats=True, batch_defer_depth=BATCH_DEPTH)
+
+
+def _counted_replays(sysm):
+    sysm.replays = 0
+    replay = sysm._recover_batch_suffix
+
+    def counted(*args):
+        sysm.replays += 1
+        return replay(*args)
+
+    sysm._recover_batch_suffix = counted
+    return sysm
+
+
+def batch_phase(st, leg, leg_gt, card, frame_ms, device="cuda"):
+    """Phase 12: batched stereo tracking at bench.py's configuration, and
+    a kidnap inside a batch. Returns the kernel launches of its runs."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence, path_length
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    t_phase = time.perf_counter()
+    st = batch_settings(st)
+    stamps = [i * 0.1 for i in range(BATCH_FRAMES)]
+    # the same frames one at a time, at the same settings
+    ref = System(st, Sensor.STEREO, device)
+    per_frame = []
+    for i, (l, r) in enumerate(leg):
+        _timed(ref.track_stereo, per_frame, device)(l, r, stamps[i])
+    ref_poses = ref.poses()
+    # batched: frame 0 bootstraps the map, then two batches staged first
+    sysm = System(st, Sensor.STEREO, device)
+    OK.orb_describe.launches = 0
+    sysm.track_stereo(*leg[0], stamps[0])
+    chunks = [slice(1 + b * BATCH, 1 + (b + 1) * BATCH) for b in range(2)]
+    staged = [sysm.upload_batch(leg[c]) for c in chunks]
+    _sync(device)
+    batch_ms = []
+    t_run = time.perf_counter()
+    for c, imgs in zip(chunks, staged):
+        t0 = time.perf_counter()
+        sysm.track_stereo_batch(imgs, stamps[c])
+        batch_ms.append((time.perf_counter() - t0) * 1e3 / BATCH)
+    in_flight = len(sysm._pending_batches)
+    state = sysm.get_tracking_state()      # drains the deferred batches
+    _sync(device)
+    total_ms = (time.perf_counter() - t_run) * 1e3 / (2 * BATCH)
+    launches = OK.orb_describe.launches
+    est = sysm.poses()
+    n_lost = sum(e.lost for e in sysm.trajectory)
+    ate = ate_rmse(est, leg_gt)
+    gate = 0.01 * path_length(leg_gt)
+    gap = (float(np.abs(est[:, :3, 3] - ref_poses[:, :3, 3]).max())
+           if est.shape == ref_poses.shape else float("inf"))
+    print(f"batched stereo: {BATCH_FRAMES} frames (1 + 2 x {BATCH}), state {state.name}, "
+          f"lost {n_lost}, keyframes {sysm.n_kfs} (per-frame run {ref.n_kfs}), "
+          f"batches in flight before the drain {in_flight}, ATE {ate:.5f} (gate "
+          f"{gate:.5f}), kernel launches {launches}; largest position gap to the "
+          f"per-frame run {gap:.3e} m (gate {BATCH_POSE_GAP})")
+    print(f"track_stereo_batch: {[round(x, 2) for x in batch_ms]} ms/frame per batch "
+          f"(wall of the call / {BATCH}, bench.py's measure), {total_ms:.2f} ms/frame "
+          f"with the drain; per-frame run of the same frames median "
+          f"{np.median(per_frame[10:]):.2f} ms; phase 4's median {frame_ms:.2f} ms; "
+          f"on {card}")
+
+    # tests/test_reloc.py's mid-batch kidnap at its own settings, and a batch
+    # lost to its end with the next in flight (the replay drops it)
+    K, bf, frames, gt = make_stereo_sequence(n_frames=15, motion="forward",
+                                             width=320, height=240)
+    kst = Settings(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                   cy=float(K[1, 2]), bf=float(bf), width=320, height=240,
+                   n_features=600, n_levels=4, th_depth=40.0, fps=10,
+                   max_points=8192, max_keyframes=64, local_window=1024,
+                   batch_defer_stats=True)
+    blank = np.full((240, 320), 128, np.uint8)
+    kidnaps = {}
+    OK.orb_describe.launches = 0
+    for name, (batch_a, batch_b, depth, view) in {
+        "mid-batch": ([(blank, blank)] + frames[6:9], frames[9:13], 1, 12),
+        "lost with the next in flight": ([(blank, blank)] * 4, frames[6:10], 2, 9),
+    }.items():
+        ks = _counted_replays(System(dataclasses.replace(kst, batch_defer_depth=depth),
+                                     Sensor.STEREO, device))
+        for i, (l, r) in enumerate(frames[:6]):
+            ks.track_stereo(l, r, i * 0.1)
+        ks.drain()   # a batch does not consume per-frame stats still pending
+        ks.track_stereo_batch(batch_a, [1.5 + 0.1 * j for j in range(4)])
+        ks.track_stereo_batch(batch_b, [1.9 + 0.1 * j for j in range(4)])
+        kstate = ks.get_tracking_state()
+        lost8 = [e.lost for e in ks.trajectory[-8:]]
+        err = float(np.linalg.norm(ks.poses()[-1][:3, 3] - gt[view][:3, 3]))
+        kidnaps[name] = (kstate, lost8, err, ks.replays)
+        print(f"kidnap ({name}, depth {depth}): state {kstate.name}, last 8 lost "
+              f"{lost8}, replays {ks.replays}, last pose {err:.5f} m from frame "
+              f"{view}'s ground truth (gate {KIDNAP_GATE})")
+    k_launches = OK.orb_describe.launches
+    k_built = 2 * (6 + 8) + 8                 # the second replays 8 frames
+    print(f"kidnaps: kernel launches {k_launches} for {k_built} frames built; "
+          f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    mid, lost_b = kidnaps["mid-batch"], kidnaps["lost with the next in flight"]
+    checks = {
+        "state OK": state == TrackingState.OK,
+        "no frame lost": n_lost == 0,
+        "poses finite, one per frame": est.shape == (BATCH_FRAMES, 4, 4)
+        and bool(np.isfinite(est).all()),
+        "ATE within 1% of path": ate <= gate,
+        "64 + 1 kernel launches":
+            launches == BATCH_FRAMES or torch.device(device).type != "cuda",
+        "both batches deferred until the drain": in_flight == 2,
+        f"within {BATCH_POSE_GAP} m of the per-frame run": gap <= BATCH_POSE_GAP,
+        "mid-batch kidnap: OK, <= 1 of the last 8 lost, within 0.08 m":
+            mid[0] == TrackingState.OK and sum(mid[1]) <= 1 and not mid[1][-1]
+            and mid[2] < KIDNAP_GATE,
+        "lost batch: one replay with the batch in flight, OK within 0.08 m":
+            lost_b[3] == 1 and lost_b[0] == TrackingState.OK and not lost_b[1][-1]
+            and lost_b[2] < KIDNAP_GATE,
+        "kidnaps: one launch per frame built":
+            k_launches == k_built or torch.device(device).type != "cuda",
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: batched stereo failed: {failed}")
+    return launches + k_launches
+
+
+MONO_B = 8            # bench_mono.py:108
+
+
+def _staged(images, device):
+    """uint8 images on `device`, copied from pinned memory on a GPU."""
+    import numpy as np
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(images.astype(np.uint8)))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+MONO_ATE_GATE = 0.15  # Sim3-aligned; tests/test_torch_mono.py (tests/test_e2e_mono.py)
+
+
+def mono_batch_phase(card, phase9_ln_in, device="cuda"):
+    """Phase 13: batched mono point+line tracking at bench_mono.py's
+    configuration. Returns the kernel launches of its run."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.slam import pipeline
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    t_phase = time.perf_counter()
+    K, _, frames, gt = make_stereo_sequence(
+        n_frames=MONO_FRAMES, width=MONO_W, height=MONO_H, fx=520.0, motion="oscillate",
+        seed=4, osc_amp=0.5, texture="grid")
+    # bench_mono.py:100-107 keeps relocalization and loop detection on
+    st = dataclasses.replace(mono_settings(Settings, K, True),
+                             enable_relocalization=True, enable_loop_closing=True,
+                             batch_defer_stats=True, batch_defer_depth=BATCH_DEPTH)
+    sysm = _counted_replays(System(st, Sensor.MONOCULAR, device))
+    rows = []
+    consume = sysm._consume_batch_stats
+
+    def recorded(fetch, *args):
+        rows.append(fetch.get().copy())
+        return consume(fetch, *args)
+
+    sysm._consume_batch_stats = recorded
+    OK.orb_describe.launches = 0
+    # one frame at a time until the two-view init, then batches of 8
+    i = 0
+    while sysm.get_tracking_state() != TrackingState.OK and i < len(frames):
+        sysm.track_mono(frames[i][0], i / 30.0)
+        i += 1
+    init_end = i
+    starts = list(range(init_end, len(frames), MONO_B))
+    staged = [_staged(np.stack([l for l, _ in frames[s:s + MONO_B]]), device)
+              for s in starts]
+    sysm.drain()
+    _sync(device)
+    batch_ms = []
+    t_run = time.perf_counter()
+    for s, imgs in zip(starts, staged):
+        t0 = time.perf_counter()
+        sysm.track_mono_batch(imgs, [j / 30.0 for j in range(s, s + len(imgs))])
+        batch_ms.append((time.perf_counter() - t0) * 1e3 / len(imgs))
+    state = sysm.get_tracking_state()
+    _sync(device)
+    total_ms = (time.perf_counter() - t_run) * 1e3 / (len(frames) - init_end)
+    launches = OK.orb_describe.launches
+    n_lost = sum(e.lost for e in sysm.trajectory)
+    idx = [int(round(e.ts * 30.0)) for e in sysm.trajectory if not e.lost]
+    est = sysm.poses()
+    ate = ate_rmse(est, gt[idx], align_scale=True)
+    ln_in = np.concatenate([r[:, pipeline.S_N_LN_IN] for r in rows]) if rows else np.zeros(0)
+    med_ln = float(np.median(ln_in)) if len(ln_in) else 0.0
+    max_ln = float(ln_in.max()) if len(ln_in) else 0.0
+    print(f"batched mono+lines: {len(frames)} frames of {MONO_W}x{MONO_H}, init at frame "
+          f"{init_end - 1} one frame at a time, then {len(starts)} batches of <= "
+          f"{MONO_B} (depth {BATCH_DEPTH}); state {state.name}, lost {n_lost}, replays "
+          f"{sysm.replays}, keyframes {sysm.n_kfs}, map lines "
+          f"{int(sysm.map.lns.valid.sum())}, line inliers per batched frame median "
+          f"{med_ln} (max {max_ln}; phase 9's per-frame median {phase9_ln_in}), "
+          f"Sim3-aligned ATE "
+          f"{ate:.5f} (gate {MONO_ATE_GATE}), kernel launches {launches}")
+    print(f"track_mono_batch: median {np.median(batch_ms):.2f} ms/frame over "
+          f"{len(batch_ms)} batches (wall of the call / B), {total_ms:.2f} ms/frame with "
+          f"the drain, on {card}; phase 13: {time.perf_counter() - t_phase:.1f} s")
+    checks = {
+        "state OK": state == TrackingState.OK,
+        "no frame lost": n_lost == 0,
+        "no replay": sysm.replays == 0,
+        "poses finite": bool(np.isfinite(est).all()),
+        f"ATE < {MONO_ATE_GATE}": ate < MONO_ATE_GATE,
+        # with mapping off this map keeps the init's few lines: phase 9's
+        # per-frame median is 0 as well (PERF.md, PR 7)
+        "lines tracked; median line inliers no lower than phase 9's":
+            max_ln > 0 and med_ln >= phase9_ln_in,
+        "one B=1 launch per frame built":
+            launches == len(frames) or torch.device(device).type != "cuda",
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: batched mono failed: {failed}")
+    return launches
+
+
+def synth_map_phase(card, device="cuda"):
+    """Phase 14: bench_mapping.py's synthetic map (12 keyframes, 2000
+    features, KITTI 1241x376) built on the card; one mapping step on
+    copies of it, and on the CPU's build."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.geometry.camera import Camera
+    from splslam_tpu_torch.io.synth_map import make_synthetic_map
+    from splslam_tpu_torch.slam import mapping_ops as MO
+
+    t_phase = time.perf_counter()
+    kw = dict(n_kfs=12, n_feat=2000, width=KITTI_W, height=KITTI_H, fx=718.0,
+              baseline=0.54)      # bench_mapping.py:57-60
+    cam = Camera.create(718.0, 718.0, KITTI_W / 2.0, KITTI_H / 2.0, bf=718.0 * 0.54,
+                        width=KITTI_W, height=KITTI_H)
+    scales = torch.tensor([1.2 ** i for i in range(8)], dtype=torch.float32)
+    kf = kw["n_kfs"] - 1
+    t0 = time.perf_counter()
+    base, _, _, _ = make_synthetic_map(**kw, device=device)
+    _sync(device)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    base_cpu, _, _, _ = make_synthetic_map(**kw, device="cpu")
+
+    def step(m, dev):
+        return MO.mapping_step(m, kf, cam, scales.to(dev), k_bucket=32)
+
+    def outcome(m, stats):
+        stats = stats.cpu()
+        cull = stats[MO.MSTAT_CULL:MO.MSTAT_GUARD].reshape(MO.MAX_KF_CULL, 17)[:, 0]
+        return (int(m.n_pts), int(m.pts.valid.sum()), int(m.kfs.valid.sum()),
+                cull.long().tolist(), int(stats[2]), int(stats[MO.MSTAT_REVERT]),
+                tuple(m.kfs.valid.cpu().tolist()))
+
+    step(base.to(device), device)      # warm-up: the first call sets up the libraries
+    step_ms = []
+    for _ in range(3):
+        m = base.to(device)
+        m, stats = _timed(step, step_ms, device)(m, device)
+    card_out = outcome(m, stats)
+    m = base.to(device)
+    n_dev, dev_ms, _ = device_kernels(lambda: step(m, device))
+    cpu_ms = []
+    m_c, stats_c = _timed(step, cpu_ms, "cpu")(base_cpu, "cpu")
+    cpu_out = outcome(m_c, stats_c)
+    print(f"synthetic map (bench_mapping.py's, {kw['n_kfs']} keyframes x {kw['n_feat']} "
+          f"features, {int(base_cpu.n_pts)} landmarks) built on the card in "
+          f"{build_ms:.1f} ms; mapping step (n_pts, valid points, valid keyframes, "
+          f"culled ids, BA inlier edges, revert) card {card_out[:6]} / CPU "
+          f"{cpu_out[:6]}, keyframe validity equal {card_out[6] == cpu_out[6]}")
+    print(f"mapping_step on the synthetic map: {_ms(step_ms)} synced on copies "
+          f"(CPU {cpu_ms[0]:.1f} ms); one step under torch.profiler: {n_dev} device "
+          f"activities, {dev_ms:.3f} ms device time (idle "
+          f"{1 - dev_ms / np.median(step_ms):.3f} of the median), on {card}; phase 14: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    checks = {
+        "card and CPU agree on the step's integers": card_out == cpu_out,
+        "landmarks created": card_out[0] > int(base_cpu.n_pts),
+        "no revert": card_out[5] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: synthetic map phase failed: {failed}")
 
 
 def _line_ints(m):

@@ -15,8 +15,8 @@ uint32 tables, `weights`, `k`, `depth`). The bundled ones live in the
 JAX package's `assets/` folder; `default_vocab_path` finds them by file
 path and they are read as data, never imported, so the 3.7 MB of
 vocabularies are not duplicated. `load_orbslam_txt` reads the reference's
-ORBvoc.txt into the same layout. Training a vocabulary is an offline host
-tool that stays with the JAX package for now.
+ORBvoc.txt into the same layout. `train` builds a vocabulary offline by
+hierarchical binary k-medians on host numpy, as the reference's does.
 """
 
 from __future__ import annotations
@@ -50,6 +50,123 @@ class Vocab(NamedTuple):
     @property
     def n_words(self) -> int:
         return int(self.k ** self.depth)
+
+
+# ----------------------------------------------------------------------
+# host-side training
+# ----------------------------------------------------------------------
+def _unpack_np(desc: np.ndarray) -> np.ndarray:
+    """[N,8] u32 -> [N,256] u8 bits."""
+    bits = (desc[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(desc.shape[0], -1).astype(np.uint8)
+
+
+def _pack_np(bits: np.ndarray) -> np.ndarray:
+    words = bits.reshape(-1, 8, 32).astype(np.uint32)
+    return (words << np.arange(32, dtype=np.uint32)).sum(-1).astype(np.uint32)
+
+
+def train(descriptors: np.ndarray, k: int = 10, depth: int = 3,
+          seed: int = 0, image_ids: np.ndarray | None = None,
+          iters: int = 8, verbose: bool = False, device="cpu") -> Vocab:
+    """Train a k^depth-word vocabulary from [N,8] u32 descriptors by
+    hierarchical binary k-medians (majority-vote medoids — the analog of
+    DBoW2's offline k-means++ on the FORB mean/distance).
+
+    Fully vectorized: distances are packed-uint64 XOR + popcount
+    (np.bitwise_count) over all N descriptors at once per Lloyd
+    iteration, and medoid votes are 256 weighted bincounts — a 10^5-word
+    (k=10, depth=5) vocabulary trains from ~500k descriptors in a few
+    minutes on host numpy, vs hours for a per-parent Python loop.
+
+    `image_ids` ([N] int, which image each descriptor came from) enables
+    the TRUE DBoW2 idf weight idf(w) = log(N_images / N_images(w))
+    (TemplatedVocabulary::setNodeWeights); without it a features-per-
+    image proxy stands in (fine for the bundled toy vocabulary, wrong
+    for serious retrieval — pass image_ids when training at scale)."""
+    rng = np.random.default_rng(seed)
+    desc_u32 = np.ascontiguousarray(np.asarray(descriptors, np.uint32))
+    N = desc_u32.shape[0]
+    u64 = desc_u32.view(np.uint64)              # [N,4]
+    bits = _unpack_np(desc_u32)                 # [N,256] u8 (medoid votes)
+    level_desc = []
+    assign = np.zeros(N, np.int64)              # parent node per sample
+    CHUNK = 1 << 17
+    for l in range(depth):
+        n_par = k ** l
+        n_nodes = k ** (l + 1)
+        # --- init: k random members per parent (k-medians seeding) ---
+        centers_bits = rng.integers(0, 2, (n_nodes, 256)).astype(np.uint8)
+        order = np.argsort(assign, kind="stable")
+        sa = assign[order]
+        starts = np.searchsorted(sa, np.arange(n_par))
+        ends = np.searchsorted(sa, np.arange(n_par) + 1)
+        for p in range(n_par):
+            s, e = int(starts[p]), int(ends[p])
+            if e > s:
+                pick = order[s + rng.choice(e - s, size=min(k, e - s),
+                                            replace=False)]
+                centers_bits[p * k:p * k + len(pick)] = bits[pick]
+        # --- Lloyd iterations (assignment restricted to the k children
+        # of each sample's parent; fully vectorized across parents) ---
+        child = np.zeros(N, np.int64)
+        cand_base = (assign * k).astype(np.int64)
+
+        def assign_pass() -> None:
+            centers_u64 = np.ascontiguousarray(
+                _pack_np(centers_bits)).view(np.uint64)  # [n_nodes,4]
+            for c0 in range(0, N, CHUNK):
+                c1 = min(c0 + CHUNK, N)
+                cand = cand_base[c0:c1, None] + np.arange(k)[None, :]
+                d = np.bitwise_count(
+                    u64[c0:c1, None, :] ^ centers_u64[cand]
+                ).sum(-1)                                # [n,k]
+                child[c0:c1] = cand[np.arange(c1 - c0), d.argmin(1)]
+
+        for _ in range(iters):
+            assign_pass()
+            # recenter: majority bit per cluster
+            cnt = np.bincount(child, minlength=n_nodes)
+            sums = np.empty((n_nodes, 256), np.int64)
+            for b in range(256):
+                sums[:, b] = np.bincount(
+                    child, weights=bits[:, b], minlength=n_nodes
+                )
+            live = cnt > 0
+            centers_bits[live] = (
+                sums[live] * 2 >= cnt[live, None]
+            ).astype(np.uint8)
+        # One closing assignment against the FINAL recentred centers so the
+        # stored tree, the next level's parent partition, and the idf
+        # occupancy below all agree with what query-time transform will
+        # compute (otherwise they lag the last recenter by a half Lloyd
+        # step: words that gained/lost members in the final recenter would
+        # get idf for the wrong occupancy).
+        assign_pass()
+        assign = child
+        if verbose:
+            occ = int((np.bincount(assign, minlength=n_nodes) > 0).sum())
+            print(f"  level {l + 1}/{depth}: {occ}/{n_nodes} nodes "
+                  f"occupied", flush=True)
+        level_desc.append(_pack_np(centers_bits))
+    W = k ** depth
+    if image_ids is not None:
+        img = np.asarray(image_ids, np.int64)
+        n_images = int(img.max()) + 1
+        # number of distinct images containing each word
+        pairs = np.unique(np.stack([assign, img], 1), axis=0)
+        n_i = np.bincount(pairs[:, 0], minlength=W).astype(np.float64)
+        # unseen words get weight 0 (DBoW2 convention), not the max idf
+        idf = np.where(
+            n_i > 0, np.log(n_images / np.maximum(n_i, 1.0)), 0.0
+        )
+    else:
+        counts = np.bincount(assign, minlength=W).astype(np.float64)
+        n_img_proxy = max(bits.shape[0] / 500.0, 1.0)  # ~features per image
+        idf = np.log(n_img_proxy * 500.0 / np.maximum(counts, 1.0))
+    weights = np.maximum(idf, 0.0).astype(np.float32)
+    return Vocab(tuple(torch.from_numpy(d.view(np.int32)).to(device) for d in level_desc),
+                 torch.from_numpy(weights).to(device), k, depth)
 
 
 def default_vocab_path() -> str:

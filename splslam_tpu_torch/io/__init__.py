@@ -1,2 +1,2 @@
-"""Host-side data for the port: synthetic sequences, the reference's YAML
-settings and the dataset loaders."""
+"""Host-side data for the port: synthetic sequences and a synthetic
+populated map, the reference's YAML settings and the dataset loaders."""

@@ -143,6 +143,12 @@ class Settings:
     force_kf_every: int = 0
     # frames in flight before the host consumes their stats
     async_depth: int = 1
+    # batch mode (`track_*_batch`): with batch_defer_stats the host reads a
+    # batch's stats only once more than batch_defer_depth batches are in
+    # flight, so it queues that many batches ahead of the device; keyframe,
+    # loss and relocalization decisions then act that many batches late
+    batch_defer_stats: bool = False
+    batch_defer_depth: int = 1
 
     def camera(self) -> Camera:
         return Camera.create(
@@ -153,6 +159,27 @@ class Settings:
     @property
     def has_distortion(self) -> bool:
         return any(abs(v) > 1e-12 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
+
+
+class _StatsFetch:
+    """One batch's stats on their way to the host: on the GPU an
+    asynchronous copy into pinned memory and an event behind it, which
+    `get` waits for; on the CPU a copy."""
+
+    def __init__(self, stats: torch.Tensor):
+        self._event = None
+        if stats.is_cuda:
+            self._host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
+            self._host.copy_(stats, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = stats.clone()
+
+    def get(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 
 @dataclass
@@ -276,6 +303,10 @@ class System:
         self.kf_pose_host: dict[int, np.ndarray] = {}
         self.trajectory: list[_TrajEntry] = []
         self._pending: deque = deque()   # (stats, ts, step_state, frame_id)
+        # (_StatsFetch, timestamps, step_state, staged images, frame id
+        # before the batch) of each batch in flight
+        self._pending_batches: deque = deque()
+        self._batch_recovering = False   # inside a lost batch's replay
         self._pending_kf_out = None      # keyframe-creation output
         self._frames_lost = 0
         self._last_reloc_fid = -(10 ** 9)
@@ -379,6 +410,82 @@ class System:
             image = torch.from_numpy(np.asarray(img).astype(np.uint8)).to(self.device)
             return mono.track_mono_impl(self, image, timestamp)
 
+    def upload_batch(self, pairs) -> torch.Tensor:
+        """Stage a batch of stereo pairs on the device ([B,2,H,W] uint8)
+        for `track_stereo_batch`; on a GPU from pinned memory without
+        waiting for the copy."""
+        return self._stage(np.stack([np.stack([np.asarray(l), np.asarray(r)])
+                                     for l, r in pairs]))
+
+    def _stage(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.uint8)))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def track_stereo_batch(self, pairs, timestamps) -> np.ndarray:
+        """Track a batch of stereo pairs (a list, or a tensor staged by
+        `upload_batch`) with one `pipeline.vo_batch_step`; returns the last
+        consumed Tcw. Before the map exists the first frame bootstraps
+        through `track_stereo`. Keyframe and relocalization decisions run
+        between batches, on each batch's final frame."""
+        t0 = time.perf_counter()
+        B = len(pairs)
+        if self.state in (TrackingState.NO_IMAGES_YET,
+                          TrackingState.NOT_INITIALIZED) or self.step is None:
+            first = ((pairs[0, 0].cpu().numpy(), pairs[0, 1].cpu().numpy())
+                     if isinstance(pairs, torch.Tensor) else pairs[0])
+            out = self.track_stereo(first[0], first[1], timestamps[0])
+            if B > 1:
+                return self.track_stereo_batch(pairs[1:], timestamps[1:])
+            return out
+        imgs = pairs if isinstance(pairs, torch.Tensor) else self.upload_batch(pairs)
+        self.map, self.step, stats = pipeline.vo_batch_step(
+            imgs, self.map, self.step, self.th_depth_m, self.ref_kf,
+            self.cam, self.spec, self.scales,
+            m_local=self.settings.local_window,
+            scale_factor=self.settings.scale_factor,
+            n_levels=self.settings.n_levels,
+            line_capacity=self.line_cap, line_cfg=self.line_cfg,
+            loc_mode=self.localization_only,
+        )
+        return self._dispatched_batch(stats, timestamps, imgs, t0)
+
+    def track_mono_batch(self, images, timestamps) -> np.ndarray:
+        """Track a batch of monocular images (a list, or a staged [B,H,W]
+        uint8 tensor) with one `pipeline.vo_batch_step_mono`; frames before
+        the map's two-view initialization (or while LOST) go one at a time
+        through `track_mono`."""
+        t0 = time.perf_counter()
+        B = len(images)
+        if self.state != TrackingState.OK or self.step is None:
+            first = (images[0].cpu().numpy() if isinstance(images, torch.Tensor)
+                     else images[0])
+            out = self.track_mono(first, timestamps[0])
+            if B > 1:
+                return self.track_mono_batch(images[1:], timestamps[1:])
+            return out
+        imgs = (images if isinstance(images, torch.Tensor)
+                else self._stage(np.stack([np.asarray(i) for i in images])))
+        st = self.settings
+        self.map, self.step, stats = pipeline.vo_batch_step_mono(
+            imgs, self.map, self.step, self.th_depth_m, self.ref_kf,
+            self.cam, self.spec, self.scales, m_local=st.local_window,
+            scale_factor=st.scale_factor, n_levels=st.n_levels,
+            line_capacity=self.line_cap, undistort=st.has_distortion,
+            line_cfg=self.line_cfg, loc_mode=self.localization_only,
+        )
+        return self._dispatched_batch(stats, timestamps, imgs, t0)
+
+    def _dispatched_batch(self, stats, timestamps, imgs, t0: float) -> np.ndarray:
+        B = len(timestamps)
+        fid0 = self.frame_id      # row b of this batch is frame fid0 + b + 1
+        self.frame_id += B
+        self._queue_batch_stats(stats, list(timestamps), self.step, imgs, fid0)
+        self.timers.add("Tracking total / frame",
+                        (time.perf_counter() - t0) * 1e3 / max(B, 1))
+        return self.last_Tcw_np.copy()
+
     def activate_localization_mode(self):
         """Track against the map without inserting keyframes (reference
         System::ActivateLocalizationMode)."""
@@ -434,11 +541,125 @@ class System:
         return self.last_Tcw_np.copy()
 
     def drain(self):
-        """Consume all in-flight frame stats (called before any state or
-        trajectory query)."""
+        """Consume all in-flight batch and frame stats (called before any
+        state or trajectory query)."""
+        while self._pending_batches:
+            self._consume_batch_stats(*self._pending_batches.popleft())
         while self._pending:
             self._process_one()
         self.mapper.flush()   # apply any pending post-BA pose and culls
+
+    # ------------------------------------------------------------------
+    # batch control flow (stats consumed at once, or `batch_defer_depth`
+    # batches late with `batch_defer_stats`)
+    # ------------------------------------------------------------------
+    def _queue_batch_stats(self, stats, timestamps, step_snap, imgs, fid0):
+        """Start the copy of a dispatched batch's stats to the host. With
+        batch_defer_stats the batch waits in `_pending_batches` and the
+        oldest is consumed once more than `batch_defer_depth` are in
+        flight; without it, it is consumed now."""
+        fetch = _StatsFetch(stats)
+        if not self.settings.batch_defer_stats:
+            self._consume_batch_stats(fetch, timestamps, step_snap, imgs, fid0)
+            return
+        self._pending_batches.append((fetch, timestamps, step_snap, imgs, fid0))
+        depth = max(1, int(self.settings.batch_defer_depth))
+        while len(self._pending_batches) > depth:
+            self._consume_batch_stats(*self._pending_batches.popleft())
+
+    def _consume_batch_stats(self, fetch: _StatsFetch, timestamps, step_snap,
+                             imgs: torch.Tensor, fid0: int):
+        """Host bookkeeping for one tracked batch: per-frame logs, LOST
+        handling, and the keyframe and relocalization decisions on the
+        batch's final frame (`step_snap` holds its FrameData).
+
+        A loss that lasts to the batch's final frame replays the staged
+        images (`imgs`) one frame at a time from the first lost frame
+        through the per-frame path, which attempts relocalization on
+        every lost frame (reference Tracking.cc:2895); newer batches
+        already dispatched from the diverged state are dropped and
+        replayed too. A dip that heals by the final frame is not
+        replayed: those rows log the last good pose, as a lost frame of
+        the per-frame path does. Batch rows get no reference-keyframe
+        fallback (the reference's batch consumer has none)."""
+        stats = fetch.get()
+        B = stats.shape[0]
+        self._resolve_kf_out()
+        lost_rows = np.array([
+            track_lost(int(stats[b, pipeline.S_N_IN]),
+                       int(stats[b, pipeline.S_N_LN_IN]),
+                       self.settings.using_line,
+                       fid0 + b + 1 < self._last_reloc_fid + int(self.settings.fps))
+            for b in range(B)
+        ])
+        if (lost_rows[-1] and self.vocab is not None and self.n_kfs > 0
+                and not self._batch_recovering):
+            b0 = int(np.argmax(lost_rows))
+            self._consume_rows(stats, timestamps, 0, b0, fid0)
+            self._recover_batch_suffix(imgs, timestamps, b0)
+            return
+        self._consume_rows(stats, timestamps, 0, B, fid0)
+        if (self.state == TrackingState.LOST and self.vocab is not None
+                and self.n_kfs > 0):
+            # a loss inside a replay: relocalize the batch's final frame,
+            # as the per-frame path does each frame
+            self.trajectory.pop()
+            if self._try_relocalize(step_snap, timestamps[-1], fid=fid0 + B):
+                self._frames_lost = 0
+            else:
+                self._log_frame(timestamps[-1], self.last_Tcw_np, lost=True)
+        # the keyframe policy on the batch's final frame
+        if (self.state == TrackingState.OK and not self.localization_only
+                and self._need_new_keyframe(stats[-1],
+                                            int(stats[-1][pipeline.S_N_IN]))):
+            self.trajectory.pop()   # _create_keyframe's path logs it again
+            self.frames_since_kf -= 1
+            self._create_keyframe(step_snap, self.last_Tcw_np, timestamps[-1])
+            self._log_frame(timestamps[-1], self.last_Tcw_np, lost=False)
+            self.frames_since_kf = 0
+
+    def _consume_rows(self, stats, timestamps, lo: int, hi: int, fid0: int):
+        """Per-frame bookkeeping for rows [lo, hi) of a batch's stats; row
+        b is frame fid0 + b + 1."""
+        for b in range(lo, hi):
+            row = stats[b]
+            n_in = int(row[pipeline.S_N_IN])
+            Tcw_np = row[pipeline.S_POSE].reshape(4, 4).astype(np.float32)
+            recent = fid0 + b + 1 < self._last_reloc_fid + int(self.settings.fps)
+            lost = track_lost(n_in, int(row[pipeline.S_N_LN_IN]),
+                              self.settings.using_line, recent)
+            if lost:
+                self.state = TrackingState.LOST
+                self._frames_lost += 1
+            else:
+                self.state = TrackingState.OK
+                self._frames_lost = 0
+                self.last_Tcw_np = Tcw_np
+            # a lost frame logs the last good pose, as the per-frame path
+            self._log_frame(timestamps[b], self.last_Tcw_np, lost=lost)
+            self.frames_since_kf += 1
+
+    def _recover_batch_suffix(self, imgs, timestamps, b0: int):
+        """Replay frames [b0:] of a lost batch, and every newer batch still
+        pending (dispatched from the diverged state; its results are
+        dropped), through the per-frame path. `imgs`: the staged
+        [B,2,H,W] stereo pairs or [B,H,W] mono images."""
+        self._batch_recovering = True
+        try:
+            segments = [(imgs, timestamps, b0)]
+            while self._pending_batches:
+                _, ts2, _, imgs2, _ = self._pending_batches.popleft()
+                segments.append((imgs2, ts2, 0))
+            self.frame_id -= sum(len(ts) - lo for _, ts, lo in segments)
+            for arr, ts_list, lo in segments:
+                host = arr.cpu().numpy()
+                for b in range(lo, len(ts_list)):
+                    if host.ndim == 4:
+                        self.track_stereo(host[b, 0], host[b, 1], ts_list[b])
+                    else:
+                        self.track_mono(host[b], ts_list[b])
+        finally:
+            self._batch_recovering = False
 
     def _process_one(self):
         stats_dev, ts, step_state, fid = self._pending.popleft()
@@ -503,9 +724,12 @@ class System:
                          v.weights, v.k, v.depth, frame.feat.desc,
                          frame.feat.valid, kf)
 
-    def _try_relocalize(self, step_state: StepState, ts: float) -> bool:
+    def _try_relocalize(self, step_state: StepState, ts: float,
+                        fid: int | None = None) -> bool:
         """Try the three best BoW candidates in turn; on the first attempt
-        with >= reloc_min_inliers, adopt its pose and associations."""
+        with >= reloc_min_inliers, adopt its pose and associations. `fid`:
+        the frame's id where it is not the newest (a batch's final frame
+        consumed late)."""
         frame = step_state.frame
         v = self.vocab
         query = V.query_bow(v.level_desc, v.weights, v.k, v.depth,
@@ -547,7 +771,7 @@ class System:
                 self.step = corrected
             self.state = TrackingState.OK
             self._frames_lost = 0
-            self._last_reloc_fid = self.frame_id
+            self._last_reloc_fid = fid if fid is not None else self.frame_id
             self.ref_kf = c
             self.last_Tcw_np = Tcw_np
             self._log_frame(ts, Tcw_np, lost=False)

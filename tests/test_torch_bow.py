@@ -214,3 +214,31 @@ def test_bow_table_crosses_convert(voc100k, orb_desc):
     again = convert.bow_table_from_numpy(JV.BowTable(ids_j, vals_j), "cpu")
     np.testing.assert_array_equal(again.ids.numpy(), back.ids)
     np.testing.assert_allclose(again.vals.numpy(), back.vals, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("k,depth,with_images", [(4, 2, False), (10, 3, False),
+                                                 (10, 3, True)])
+def test_train_matches_jax(k, depth, with_images):
+    """The port's `train` (host numpy, the reference's draws) against the
+    JAX package's on the same descriptors: level tables and weights exactly
+    equal, with the features-per-image idf proxy and with image ids (the
+    true idf)."""
+    rng = np.random.default_rng(7)
+    n = 600 if depth == 2 else 6000
+    desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    kw = dict(k=k, depth=depth, seed=3)
+    if with_images:
+        kw["image_ids"] = rng.integers(0, 40, n)
+    jv = JV.train(desc, **kw)
+    tv = TV.train(desc, **kw, device="cpu")
+    assert (tv.k, tv.depth, tv.n_words) == (jv.k, jv.depth, jv.n_words)
+    assert len(tv.level_desc) == len(jv.level_desc) == depth
+    for tl, jl in zip(tv.level_desc, jv.level_desc):
+        assert tl.dtype == torch.int32 and tl.shape == (jl.shape[0], 8)
+        np.testing.assert_array_equal(tl.numpy().view(np.uint32), np.asarray(jl))
+    np.testing.assert_array_equal(tv.weights.numpy(), np.asarray(jv.weights))
+    assert float(tv.weights.max()) > 0
+    # and the port's vocabulary sends descriptors to the JAX package's words
+    w1 = JV.transform_words(jv, jnp.asarray(desc[:200]), jnp.ones(200, bool))
+    w2 = TV.transform_words(tv, _t(desc[:200]), torch.ones(200, dtype=torch.bool))
+    np.testing.assert_array_equal(w2.numpy(), np.asarray(w1))

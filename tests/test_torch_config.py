@@ -60,10 +60,10 @@ def _same_raw(a: dict, b: dict):
 # settings
 # ---------------------------------------------------------------------
 def test_settings_fields_cover_the_jax_package():
-    """Every JAX Settings field is the port's, with its default, apart from
-    the batch-mode knobs the port does not take (ROADMAP "Do not port")."""
+    """Every JAX Settings field is the port's, with its default, the
+    batch-mode knobs (`batch_defer_stats`, `batch_defer_depth`) included."""
     missing = set(JS.Settings.__dataclass_fields__) - set(SHARED)
-    assert missing == {"batch_defer_stats", "batch_defer_depth"}
+    assert missing == set()
     for f in SHARED:
         assert getattr(TS.Settings(), f) == getattr(JS.Settings(), f), f
 

@@ -14,7 +14,12 @@ global BA with line edges card against CPU, and a line mapping step and
 a line relocalization attempt that wait for nothing; an RGB-D frame step,
 with and without localization mode's temporal points, card against CPU
 from one CPU-built state and waiting for nothing, one B = 1 launch a
-built RGB-D frame, and `device_trace` recording the card's kernels.
+built RGB-D frame, and `device_trace` recording the card's kernels;
+batched tracking: `vo_batch_step` (stereo) and `vo_batch_step_mono` card
+against CPU from one CPU-built state with integers equal and one launch
+a frame, a stereo batch that waits for nothing, `track_stereo_batch`
+with deferred stats from pinned staging against the CPU run; and
+`make_synthetic_map` with one `mapping_step`, card against CPU.
 Every test skips on a host without a card.
 
 This file imports no JAX (a GPU host need not have it, and
@@ -1022,3 +1027,177 @@ def test_device_trace_records_the_card(cuda, tmp_path):
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("cat") == "kernel" and "orb_describe" in e.get("name", "")
                for e in events)
+
+
+# ---------------------------------------------------------------------
+# batched tracking and the synthetic map, card against CPU
+# ---------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def batch_state():
+    """A CPU stereo System after 9 forward frames with local mapping and a
+    keyframe every 4 frames (relocalization and loop closing off), and the
+    next 4 frames as a uint8 [4,2,H,W] batch."""
+    if not torch.cuda.is_available():     # before the CPU run
+        pytest.skip("needs a CUDA device")
+    K, bf, frames, _ = make_stereo_sequence(n_frames=13, motion="forward",
+                                            width=320, height=240)
+    st = _settings(K, bf, force_kf_every=4, enable_relocalization=False,
+                   enable_loop_closing=False)
+    sysm = TS.System(st, TS.Sensor.STEREO, "cpu")
+    for i, (l, r) in enumerate(frames[:9]):
+        sysm.track_stereo(l, r, i * 0.1)
+    sysm.drain()
+    assert sysm.get_tracking_state() == TS.TrackingState.OK and sysm.n_kfs >= 2
+    imgs = np.stack([np.stack(f) for f in frames[9:13]]).astype(np.uint8)
+    return sysm, imgs
+
+
+def _batch_step(sysm, imgs, step, m, scales):
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    st = sysm.settings
+    return PL.vo_batch_step(
+        imgs, m, step, sysm.th_depth_m, sysm.ref_kf, sysm.cam, sysm.spec,
+        scales, m_local=st.local_window,
+        scale_factor=st.scale_factor, n_levels=st.n_levels,
+        line_capacity=sysm.line_cap, line_cfg=sysm.line_cfg)
+
+
+def test_vo_batch_step_gpu_matches_cpu(cuda, batch_state):
+    """`vo_batch_step` from identical copies of one state: every row's
+    counts, the landmark ids and the point counters equal, poses within
+    1e-3; one kernel launch a frame on the card."""
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    sysm, imgs = batch_state
+    outs = []
+    for dev in ("cpu", cuda):
+        before = OK.orb_describe.launches
+        m, step, stats = _batch_step(sysm, torch.from_numpy(imgs).to(dev),
+                                     _step_to(sysm.step, dev), sysm.map.to(dev),
+                                     sysm.scales.to(dev))
+        outs.append((m, step, stats.cpu(), OK.orb_describe.launches - before))
+    (mc, sc, tc, lc), (mg, sg, tg, lg) = outs
+    print(f"vo_batch_step card vs CPU: pose max abs err "
+          f"{float((tg[:, :16] - tc[:, :16]).abs().max()):.3e}, n_in "
+          f"{tg[:, PL.S_N_IN].tolist()}")
+    assert (lc, lg) == (0, len(imgs))
+    assert tg.shape == (len(imgs), PL.STATS_LEN)
+    torch.testing.assert_close(tg[:, 16:], tc[:, 16:], rtol=0, atol=0)
+    torch.testing.assert_close(tg[:, :16], tc[:, :16], rtol=0, atol=1e-3)
+    torch.testing.assert_close(sg.lm_gid.cpu(), sc.lm_gid, rtol=0, atol=0)
+    for name in ("n_visible", "n_found"):
+        torch.testing.assert_close(getattr(mg.pts, name).cpu(), getattr(mc.pts, name),
+                                   rtol=0, atol=0, msg=name)
+    assert int(tc[:, PL.S_N_IN].min()) > 100
+
+
+def test_vo_batch_step_does_not_sync(cuda, batch_state):
+    """A batch of 4 stereo frames (4 ORB launches, the frozen windows,
+    tracking, the counters) reads nothing back to the host."""
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    sysm, imgs = batch_state
+    imgs = torch.from_numpy(imgs).to(cuda)
+    step, m, scales = _step_to(sysm.step, cuda), sysm.map.to(cuda), sysm.scales.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, stats = _batch_step(sysm, imgs, step, m, scales)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(stats).all())
+    assert int(stats[:, PL.S_N_IN].min()) > 100
+
+
+def test_track_stereo_batch_gpu_matches_cpu(cuda):
+    """`track_stereo_batch` with the stats deferred two batches, staged by
+    `upload_batch` (pinned memory on the card): the CPU run's keyframes and
+    mapping steps, poses within 1e-3, one launch a frame built."""
+    K, bf, frames, gt = make_stereo_sequence(n_frames=16, motion="forward",
+                                             width=320, height=240)
+    st = _settings(K, bf, force_kf_every=4, batch_defer_stats=True,
+                   batch_defer_depth=2)
+    runs = []
+    for dev in ("cpu", cuda):
+        sysm = TS.System(st, TS.Sensor.STEREO, dev)
+        before = OK.orb_describe.launches
+        for i in range(0, len(frames), 4):
+            staged = sysm.upload_batch(frames[i:i + 4])
+            assert staged.device.type == torch.device(dev).type
+            sysm.track_stereo_batch(staged, [j * 0.1 for j in range(i, i + 4)])
+        assert sysm.get_tracking_state() == TS.TrackingState.OK
+        runs.append((sysm, OK.orb_describe.launches - before))
+    (sc, lc), (sg, lg) = runs
+    assert lc == 0 and lg == len(frames)
+    assert sg.n_kfs == sc.n_kfs >= 3 and sg.mapper.n_steps == sc.mapper.n_steps
+    torch.testing.assert_close(sg.map.kfs.frame_id.cpu(), sc.map.kfs.frame_id)
+    np.testing.assert_allclose(sg.poses()[:, :3, :4], sc.poses()[:, :3, :4], atol=1e-3)
+    assert ate_rmse(sg.poses(), gt) < 0.05
+
+
+def test_vo_batch_step_mono_gpu_matches_cpu(cuda):
+    """`vo_batch_step_mono` with lines from identical copies of a CPU-built
+    state after the two-view init: counts and landmark ids equal, poses
+    within 1e-3, one B = 1 launch a frame."""
+    from splslam_tpu_torch.slam import pipeline as PL
+
+    K, _, frames, _ = _grid_frames(14)
+    st = _settings(K, 0.0, using_line=True, line_features=64,
+                   enable_local_mapping=False, enable_relocalization=False,
+                   enable_loop_closing=False)
+    sysm = TS.System(st, TS.Sensor.MONOCULAR, "cpu")
+    for i, (l, _) in enumerate(frames[:10]):
+        sysm.track_mono(l, i * 0.1)
+    sysm.drain()
+    assert sysm.get_tracking_state() == TS.TrackingState.OK
+    imgs = np.stack([l for l, _ in frames[10:14]]).astype(np.uint8)
+    outs = []
+    for dev in ("cpu", cuda):
+        before = OK.orb_describe.launches
+        _, step, stats = PL.vo_batch_step_mono(
+            torch.from_numpy(imgs).to(dev), sysm.map.to(dev), _step_to(sysm.step, dev),
+            sysm.th_depth_m, sysm.ref_kf, sysm.cam, sysm.spec, sysm.scales.to(dev),
+            m_local=st.local_window, scale_factor=st.scale_factor,
+            n_levels=st.n_levels, line_capacity=sysm.line_cap, line_cfg=sysm.line_cfg)
+        outs.append((step, stats.cpu(), OK.orb_describe.launches - before))
+    (sc, tc, lc), (sg, tg, lg) = outs
+    assert (lc, lg) == (0, len(imgs))
+    torch.testing.assert_close(tg[:, 16:], tc[:, 16:], rtol=0, atol=0)
+    torch.testing.assert_close(tg[:, :16], tc[:, :16], rtol=0, atol=1e-3)
+    torch.testing.assert_close(sg.lm_gid.cpu(), sc.lm_gid, rtol=0, atol=0)
+    torch.testing.assert_close(sg.ll_gid.cpu(), sc.ll_gid, rtol=0, atol=0)
+    assert int(tc[:, PL.S_N_IN].min()) > 50
+
+
+def test_synthetic_map_mapping_step_gpu_matches_cpu(cuda):
+    """`make_synthetic_map` built on the card equals the CPU build; one
+    mapping step on each (cull, triangulate, fuse, local BA, keyframe
+    culling): the integer tables equal, keyframe poses within 1e-3, 99% of
+    the landmarks within 1e-3."""
+    from splslam_tpu_torch.geometry.camera import Camera
+    from splslam_tpu_torch.io.synth_map import make_synthetic_map
+
+    kw = dict(n_kfs=6, n_feat=500, p_cap=16384, k_cap=32, width=640, height=480,
+              fx=500.0)
+    cam = Camera.create(500.0, 500.0, 320.0, 240.0, bf=500.0 * 0.54, width=640,
+                        height=480)
+    scales = torch.tensor([1.2 ** i for i in range(8)], dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        m, _, _, _ = make_synthetic_map(**kw, device=dev)
+        assert m.pts.xyz.device.type == torch.device(dev).type
+        built = {k: v.to("cpu", copy=True) for k, v in _int_tables(m).items()}
+        m, stats = TMO.mapping_step(m, kw["n_kfs"] - 1, cam, scales.to(dev), k_bucket=32)
+        out[dev] = (built, {k: v.to("cpu", copy=True) for k, v in _int_tables(m).items()},
+                    m.kfs.Tcw.cpu(), m.pts.xyz.cpu(), stats.cpu())
+    (bc, ic, Tc, xc, sc), (bg, ig, Tg, xg, sg) = out["cpu"], out[cuda]
+    for k in bc:
+        torch.testing.assert_close(bg[k], bc[k], rtol=0, atol=0, msg=k)
+    for k in ic:
+        torch.testing.assert_close(ig[k], ic[k], rtol=0, atol=0, msg=k)
+    np.testing.assert_allclose(Tg.numpy(), Tc.numpy(), atol=1e-3)
+    valid = ic["pts.valid"]
+    d = (xg - xc).norm(dim=-1)[valid]
+    assert float(torch.quantile(d, 0.99)) <= 1e-3
+    assert int(sc[0]) > int(bc["n_pts"]) and int(sg[TMO.MSTAT_REVERT]) == 0
