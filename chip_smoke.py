@@ -177,6 +177,33 @@ Phases, each fatal on failure:
      activities, idle share), and one on the CPU's build: card and CPU
      agree on the step's integers (landmark count, valid points and
      keyframes, culled keyframe ids, BA inlier edges, revert).
+ 15. the last module slice. (a) Phase 4's 40 frames written as a KITTI
+     folder (times.txt, image_0/, image_1/, 8-bit gray PNGs written with
+     zlib + struct) and read back through the native prefetcher
+     (`io/native.py`, g++-built) into `track_stereo` with phase 4's
+     settings, as `examples/stereo_kitti.py` runs: every pixel equal to
+     the arrays written, no frame lost, every pose within 1e-5 m of phase
+     4's, one launch a frame; the loader's ms a pair beside the frame's.
+     (b) The same 40 pairs through the ROS `StereoGrabber`, the right
+     image first on odd frames, right stamps 5 ms late, and a stale left
+     with no partner before frame 20: 40 pairs tracked, the stale left
+     dropped, every pose within 1e-5 m of (a). (c) With cv2 and
+     matplotlib, the live `Viewer` records PNGs during (b); with cv2, the
+     AR plane anchors on (b)'s tracked points and `render_ar_frame` draws
+     the overlay; what does not run is named with its reason. (d)
+     `gba_sharded` at `make_gba_problem()`'s size (64 keyframes, 16,384
+     points, 1,024 lines, 139,264 edges; 2 rounds of 2 GN steps of 8 CG
+     iterations, dryrun_multichip's schedule) at world 1 over NCCL (4 runs:
+     ms, edges/s as scripts/bench_gba_scaling.py counts them, the
+     run-to-run spread), with 4 gloo ranks sharing the card, and at world 1
+     on the CPU: n_guarded 0 for every run, 4 ranks against world 1 and
+     world 1 against the CPU within tests/test_torch_parallel.py's
+     tolerance (poses 1e-4, point landmarks 5e-4, line endpoints 5e-4 off
+     the other run's line); NCCL asked for two ranks on one card (refused
+     or not, printed); 4 NCCL ranks, one card each, where 4 cards exist.
+     (e) `dryrun_multichip(torch.cuda.device_count())`: fleet tracking
+     with a summed statistic, then the sharded BA; one launch a fleet row.
+     The launches of (a), (b) and (e) count into the kernel line.
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -454,6 +481,9 @@ def main() -> None:
     batch_launches = batch_phase(st, leg, leg_gt, card, ms)
     mono_batch_launches = mono_batch_phase(card, mono_ln_in)
     synth_map_phase(card)
+    slice_launches = kitti_ros_viz_phase(st, frames, est, card)
+    sharded_gba_phase(card)
+    slice_launches += fleet_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
@@ -462,7 +492,8 @@ def main() -> None:
         "replaces": "splslam_tpu/ops/orb_pallas.py:172",
         "launches": (launches + map_launches + reloc_launches + loop_launches
                      + live_launches + mono_launches + backend_launches
-                     + rgbd_launches + batch_launches + mono_batch_launches),
+                     + rgbd_launches + batch_launches + mono_batch_launches
+                     + slice_launches),
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1945,6 +1976,323 @@ def synth_map_phase(card, device="cuda"):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: synthetic map phase failed: {failed}")
+
+
+# ---------------------------------------------------------------------
+# phase 15: the prefetcher, the ROS grabber, the viewer and AR overlay,
+# sharded global BA, the fleet dry run
+# ---------------------------------------------------------------------
+SLICE_POSE_GAP = 1e-5     # m: the same pixels and settings give the same poses
+GBA_POSE_ATOL = 1e-4      # tests/test_torch_parallel.py
+GBA_XYZ_ATOL = 5e-4       # same source: point landmarks, endpoints off-line
+GBA_KW = dict(rounds=2, gn_iters=2, cg_iters=8)   # dryrun_multichip's
+
+
+def write_png_gray(path, img) -> None:
+    """An 8-bit grayscale PNG (no filter, one zlib stream) from the stdlib."""
+    import struct
+    import zlib
+
+    h, w = img.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_kitti_folder(root, frames, dt: float = 0.1):
+    """A KITTI odometry folder (times.txt, image_0/, image_1/) of the
+    stereo pairs `frames` as 8-bit PNGs; returns the uint8 pairs written."""
+    import os
+
+    import numpy as np
+
+    for d in ("image_0", "image_1"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    with open(os.path.join(root, "times.txt"), "w") as f:
+        f.write("\n".join(repr(i * dt) for i in range(len(frames))) + "\n")
+    pixels = []
+    for i, (l, r) in enumerate(frames):
+        pair = (np.asarray(l).astype(np.uint8), np.asarray(r).astype(np.uint8))
+        for d, img in zip(("image_0", "image_1"), pair):
+            write_png_gray(os.path.join(root, d, f"{i:06d}.png"), img)
+        pixels.append(pair)
+    return pixels
+
+
+def _pose_gap(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a[:, :3, 3] - b[:, :3, 3], axis=-1).max())
+
+
+def kitti_ros_viz_phase(st, frames, est4, card, device="cuda"):
+    """Phase 15 (a)-(c). Returns the kernel launches of (a) and (b)."""
+    import glob
+    import importlib.util
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.io.datasets import load_kitti_stereo
+    from splslam_tpu_torch.io.native import PrefetchLoader, _load_lib
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.ros import StereoGrabber
+    from splslam_tpu_torch.slam.system import Sensor, System, TrackingState
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    _load_lib()
+    build_s = time.perf_counter() - t0
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("cv2", "matplotlib")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as root:
+        pixels = write_kitti_folder(root, frames)
+        left, right, ts = load_kitti_stereo(root)
+
+        # (a) the KITTI driver's path
+        sysm = System(st, Sensor.STEREO, device)
+        load_ms, track_ms, n_equal = [], [], 0
+        OK.orb_describe.launches = 0
+        with PrefetchLoader(left, st.width, st.height) as dl_l, \
+                PrefetchLoader(right, st.width, st.height) as dl_r:
+            for i, t in enumerate(ts):
+                t0 = time.perf_counter()
+                img_l, img_r = dl_l[i], dl_r[i]
+                load_ms.append((time.perf_counter() - t0) * 1e3)
+                n_equal += int(np.array_equal(img_l, pixels[i][0])
+                               and np.array_equal(img_r, pixels[i][1]))
+                _sync(device)
+                t0 = time.perf_counter()
+                sysm.track_stereo(img_l, img_r, t)
+                _sync(device)
+                track_ms.append((time.perf_counter() - t0) * 1e3)
+        launches_a = OK.orb_describe.launches
+        state_a = sysm.get_tracking_state()
+        est_a = sysm.poses()
+        lost_a = sum(e.lost for e in sysm.trajectory)
+        gap_a = _pose_gap(est_a, est4)
+        print(f"KITTI folder -> PrefetchLoader -> track_stereo: {len(ts)} pairs "
+              f"(g++ build {build_s:.2f} s), pixels equal to the arrays written "
+              f"{n_equal}/{len(ts)}, state {state_a.name}, lost {lost_a}, largest "
+              f"pose gap to phase 4 {gap_a:.3e} m, kernel launches {launches_a}; "
+              f"loader {_ms(load_ms)} a pair beside track_stereo {_ms(track_ms[10:])} "
+              f"(frames 10 on) on {card}")
+
+        # (b) the ROS grabber, with the viewer where it can run
+        sysm_b = System(st, Sensor.STEREO, device)
+        viewer = None
+        if have["cv2"] and have["matplotlib"]:
+            from splslam_tpu_torch.viz import Viewer
+
+            viewer = Viewer(sysm_b, fps=20.0, out_dir=os.path.join(root, "viewer"),
+                            show=False, map_every=10).start()
+        g = StereoGrabber(sysm_b)
+        OK.orb_describe.launches = 0
+        for i, ((l, r), t) in enumerate(zip(pixels, ts)):
+            if i == 20:
+                g.push_left(pixels[19][0], t - 0.05)     # stale, never paired
+            if i % 2:
+                g.push_right(r, t + 0.005)
+                g.push_left(l, t)
+            else:
+                g.push_left(l, t)
+                g.push_right(r, t + 0.005)
+        launches_b = OK.orb_describe.launches
+        state_b = sysm_b.get_tracking_state()
+        est_b = sysm_b.poses()
+        gap_b = _pose_gap(est_b, est_a)
+        print(f"StereoGrabber (right first on odd frames, 5 ms skew, a stale "
+              f"left before frame 20): n_tracked {g.n_tracked}, state "
+              f"{state_b.name}, {len(sysm_b.trajectory)} poses logged, largest "
+              f"pose gap to (a) {gap_b:.3e} m, kernel launches {launches_b}")
+
+        # (c) the viewer and the AR overlay
+        n_png = 0
+        if viewer is not None:
+            viewer.request_stop()
+            deadline = time.time() + 10.0
+            while not viewer.is_stopped() and time.time() < deadline:
+                time.sleep(0.01)
+            stopped = viewer.is_stopped()
+            viewer.release()
+            viewer.request_finish()
+            viewer.join(10.0)
+            n_png = len(glob.glob(os.path.join(root, "viewer", "frame_*.png")))
+            print(f"Viewer during (b): {n_png} overlay PNGs, {viewer.n_rendered} "
+                  f"rendered, map.png "
+                  f"{os.path.exists(os.path.join(root, 'viewer', 'map.png'))}, "
+                  f"stop handshake {stopped}, finished {viewer.is_finished()}")
+        else:
+            print("Viewer: did not run here: "
+                  + ", ".join(m for m, ok in have.items() if not ok)
+                  + " not installed (it draws with cv2 and plots the map with "
+                    "matplotlib)")
+        anchored, overlay_shape = None, None
+        if have["cv2"]:
+            from splslam_tpu_torch.viz.ar import ARState, render_ar_frame
+
+            ar = ARState()
+            anchored = ar.try_anchor(sysm_b)
+            overlay_shape = render_ar_frame(sysm_b, sysm_b.last_image, ar).shape
+            print(f"AR overlay on (b)'s final state: anchored {anchored} at "
+                  f"{np.round(ar.anchor, 3) if anchored else None}, overlay "
+                  f"{overlay_shape}")
+        else:
+            print("AR overlay: did not run here: cv2 not installed")
+    print(f"phase 15 (a)-(c): {time.perf_counter() - t_phase:.1f} s")
+    checks = {
+        "(a) pixels equal to the arrays written": n_equal == len(frames),
+        "(a) state OK, no frame lost": state_a == TrackingState.OK and lost_a == 0,
+        f"(a) within {SLICE_POSE_GAP} m of phase 4": gap_a <= SLICE_POSE_GAP,
+        "(a) one launch a frame":
+            launches_a == len(frames) or torch.device(device).type != "cuda",
+        "(b) every pair tracked once, the stale left dropped":
+            g.n_tracked == len(frames) and len(sysm_b.trajectory) == len(frames),
+        f"(b) within {SLICE_POSE_GAP} m of (a)": gap_b <= SLICE_POSE_GAP,
+        "(b) one launch a frame":
+            launches_b == len(frames) or torch.device(device).type != "cuda",
+        "(c) viewer recorded while tracking": viewer is None or (
+            n_png >= 3 and viewer.is_finished() and not viewer._warned),
+        "(c) AR anchored, overlay drawn": not have["cv2"] or (
+            anchored and overlay_shape == (st.height, st.width, 3)),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 15 (a)-(c) failed: {failed}")
+    return launches_a + launches_b
+
+
+def _gba_gaps(a: dict, b: dict, n_pts: int):
+    """(largest pose difference, largest point-landmark difference, largest
+    line-endpoint distance off b's line) between two sharded BA results."""
+    import numpy as np
+
+    X, Xr = a["xyz"], b["xyz"]
+    e, er = X[n_pts:].reshape(-1, 2, 3), Xr[n_pts:].reshape(-1, 2, 3)
+    d = er[:, 1] - er[:, 0]
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    off = e - er
+    off = off - np.sum(off * d[:, None], -1)[..., None] * d[:, None]
+    return (float(np.abs(a["Tcw"] - b["Tcw"]).max()),
+            float(np.abs(X[:n_pts] - Xr[:n_pts]).max()),
+            float(np.abs(off).max()))
+
+
+def sharded_gba_phase(card, device="cuda"):
+    """Phase 15 (d): edge-sharded global BA at the reference's size."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.convert import ba_problem_to_numpy
+    from splslam_tpu_torch.graft_entry import make_gba_problem
+    from splslam_tpu_torch.parallel.gba_sharded import solve_on_rank
+    from splslam_tpu_torch.parallel.mesh import check_group, launch
+
+    t_phase = time.perf_counter()
+    n_pts = 16384
+    camb, prob = make_gba_problem(device="cpu")
+    pn = ba_problem_to_numpy(prob)
+    E = int(pn.e_cam.shape[0])
+    work = E * GBA_KW["rounds"] * GBA_KW["gn_iters"]   # bench_gba_scaling.py
+
+    def report(name, out):
+        later = out["ms"][1:]
+        ms = float(np.median(later)) if later else out["ms"][0]
+        how = (f"median of {len(later)} after the first, {out['ms'][0]:.2f} the "
+               "first" if later else "one run")
+        print(f"gba_sharded {name}: n_guarded {out['n_guarded']}, {ms:.2f} ms a "
+              f"solve ({how}), {work / ms * 1e3:.0f} edges/s ({E} edges x "
+              f"{GBA_KW['rounds']} rounds x {GBA_KW['gn_iters']} GN steps)")
+        return ms
+
+    runs = {}
+    runs["card, world 1, NCCL"] = launch(solve_on_rank, 1, device, timeout_s=300,
+                                         args=(camb, pn, GBA_KW, 4))[0]
+    four = launch(solve_on_rank, 4, device, backend="gloo", share_cards=True,
+                  timeout_s=300, args=(camb, pn, GBA_KW, 3))
+    runs["card, 4 gloo ranks on one card"] = four[0]
+    runs["CPU, world 1, gloo"] = launch(solve_on_rank, 1, "cpu", timeout_s=300,
+                                        args=(camb, pn, GBA_KW, 1))[0]
+    if torch.cuda.device_count() >= 4:
+        runs["4 cards, 4 NCCL ranks"] = launch(solve_on_rank, 4, device,
+                                              timeout_s=300,
+                                              args=(camb, pn, GBA_KW, 3))[0]
+    else:
+        print(f"gba_sharded on 4 NCCL ranks, one card each: did not run: "
+              f"{torch.cuda.device_count()} card(s) here")
+    ms = {k: report(k, v) for k, v in runs.items()}
+    w1 = runs["card, world 1, NCCL"]
+    print("gba_sharded run-to-run spread on the card (world 1, 3 repeats "
+          "against the first; pose max abs, landmark max and q99 distance): "
+          + "; ".join(f"{a:.3e} / {b:.3e} / {c:.3e}" for a, b, c in w1["spread"])
+          + f", on {card}")
+    gaps = {"4 gloo ranks vs world 1": _gba_gaps(four[0], w1, n_pts),
+            "world 1 card vs CPU": _gba_gaps(w1, runs["CPU, world 1, gloo"], n_pts)}
+    if "4 cards, 4 NCCL ranks" in runs:
+        gaps["4 NCCL ranks vs world 1"] = _gba_gaps(runs["4 cards, 4 NCCL ranks"],
+                                                    w1, n_pts)
+    for k, (dT, dX, dE) in gaps.items():
+        print(f"gba_sharded {k}: pose {dT:.3e}, point landmarks {dX:.3e}, line "
+              f"endpoints off-line {dE:.3e} (tolerance {GBA_POSE_ATOL} / "
+              f"{GBA_XYZ_ATOL} / {GBA_XYZ_ATOL})")
+    if torch.device(device).type == "cuda":
+        # what NCCL does with two ranks on one card (an outcome, not a check)
+        try:
+            sums = launch(check_group, 2, device, backend="nccl", share_cards=True,
+                          timeout_s=120)
+            nccl2 = f"accepted (group sums {sums})"
+        except RuntimeError as e:
+            lines = [ln.strip() for ln in str(e).splitlines()]
+            why = ([ln for ln in lines if "Duplicate GPU" in ln]
+                   or [ln for ln in lines if "NCCL error" in ln] or lines[:1])
+            nccl2 = "refused: " + why[0][:300]
+        print(f"NCCL with two ranks on one card: {nccl2}")
+    print(f"phase 15 (d): {time.perf_counter() - t_phase:.1f} s, world 1 "
+          f"{ms['card, world 1, NCCL']:.2f} ms vs 4 gloo ranks "
+          f"{ms['card, 4 gloo ranks on one card']:.2f} ms on {card}")
+    checks = {
+        "n_guarded 0 for every run": all(r["n_guarded"] == 0 for r in runs.values()),
+        "4 ranks return the same states": all(
+            np.array_equal(o["Tcw"], four[0]["Tcw"])
+            and np.array_equal(o["xyz"], four[0]["xyz"]) for o in four),
+        "states finite": all(np.isfinite(r["Tcw"]).all() and np.isfinite(r["xyz"]).all()
+                             for r in runs.values()),
+        "64 keyframes out": all(r["Tcw"].shape[0] == 64 for r in runs.values()),
+        "within tolerance": all(dT <= GBA_POSE_ATOL and dX <= GBA_XYZ_ATOL
+                                and dE <= GBA_XYZ_ATOL for dT, dX, dE in gaps.values()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 15 (d) failed: {failed}")
+
+
+def fleet_phase(card, device="cuda"):
+    """Phase 15 (e): `dryrun_multichip` on the cards there are. Returns the
+    ranks' kernel launches."""
+    import torch
+
+    from splslam_tpu_torch.graft_entry import dryrun_multichip
+
+    n = torch.cuda.device_count() if torch.device(device).type == "cuda" else 2
+    t0 = time.perf_counter()
+    out = dryrun_multichip(n, device)
+    print(f"dryrun_multichip({n}): fleet poses {out['Tcw'].shape}, fleet inliers "
+          f"{out['fleet_inliers']}, sharded BA {out['gba_keyframes']} keyframes, "
+          f"n_guarded {out['n_guarded']}, kernel launches {out['launches']}, "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    if out["launches"] != n and torch.device(device).type == "cuda":
+        raise SystemExit(f"chip_smoke: dryrun_multichip launched the kernel "
+                         f"{out['launches']} times for {n} fleet rows")
+    return out["launches"]
 
 
 def _line_ints(m):

@@ -68,7 +68,7 @@ def _pack_np(bits: np.ndarray) -> np.ndarray:
 
 def train(descriptors: np.ndarray, k: int = 10, depth: int = 3,
           seed: int = 0, image_ids: np.ndarray | None = None,
-          iters: int = 8, verbose: bool = False, device="cpu") -> Vocab:
+          iters: int = 8, verbose: bool = False, device="cuda") -> Vocab:
     """Train a k^depth-word vocabulary from [N,8] u32 descriptors by
     hierarchical binary k-medians (majority-vote medoids — the analog of
     DBoW2's offline k-means++ on the FORB mean/distance).

@@ -2,7 +2,8 @@
 
 from splslam_tpu_torch.examples._common import driver_args, run_sequence
 from splslam_tpu_torch.io.config import load_settings
-from splslam_tpu_torch.io.datasets import imread_gray, load_kitti_mono
+from splslam_tpu_torch.io.datasets import load_kitti_mono
+from splslam_tpu_torch.io.native import PrefetchLoader
 from splslam_tpu_torch.slam.system import Sensor, System
 
 
@@ -11,9 +12,10 @@ def main(argv=None, device: str | None = None) -> int:
     st, _ = load_settings(a.settings)
     imgs, ts = load_kitti_mono(a.sequence)
     sysm = System(st, Sensor.MONOCULAR, device or a.device)
-    feed = ((lambda p=p, t=t: sysm.track_mono(imread_gray(p), t))
-            for p, t in zip(imgs, ts))
-    run_sequence(sysm, feed, len(ts))
+    with PrefetchLoader(imgs, st.width, st.height) as dl:
+        feed = ((lambda i=i, t=t: sysm.track_mono(dl[i], t))
+                for i, t in enumerate(ts))
+        run_sequence(sysm, feed, len(ts))
     # KITTI-mono export (reference SaveTrajectoryKITTIMono, src/System.cc:492)
     sysm.save_trajectory_kitti_mono(a.out)
     return 0

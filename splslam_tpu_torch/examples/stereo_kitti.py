@@ -2,7 +2,8 @@
 
 from splslam_tpu_torch.examples._common import driver_args, run_sequence
 from splslam_tpu_torch.io.config import load_settings
-from splslam_tpu_torch.io.datasets import imread_gray, load_kitti_stereo
+from splslam_tpu_torch.io.datasets import load_kitti_stereo
+from splslam_tpu_torch.io.native import PrefetchLoader
 from splslam_tpu_torch.slam.system import Sensor, System
 
 
@@ -11,9 +12,13 @@ def main(argv=None, device: str | None = None) -> int:
     st, _ = load_settings(a.settings)
     left, right, ts = load_kitti_stereo(a.sequence)
     sysm = System(st, Sensor.STEREO, device or a.device)
-    feed = ((lambda l=l, r=r, t=t: sysm.track_stereo(imread_gray(l), imread_gray(r), t))
-            for l, r, t in zip(left, right, ts))
-    run_sequence(sysm, feed, len(ts))
+    # Native prefetcher: the C++ pool decodes frames i+1.. while the card
+    # tracks frame i (native/dataloader.cpp).
+    with PrefetchLoader(left, st.width, st.height) as dl_l, \
+            PrefetchLoader(right, st.width, st.height) as dl_r:
+        feed = ((lambda i=i, t=t: sysm.track_stereo(dl_l[i], dl_r[i], t))
+                for i, t in enumerate(ts))
+        run_sequence(sysm, feed, len(ts))
     sysm.save_trajectory_kitti(a.out)
     return 0
 

@@ -57,7 +57,7 @@ def make_synthetic_map(
     n_levels: int = 8,
     scale_factor: float = 1.2,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
 ):
     """Returns (MapState, FrameData next frame, tracking StepState
     seeded at the next pose, all on `device`, and Tcw_next [4,4] numpy).

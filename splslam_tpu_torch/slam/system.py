@@ -299,6 +299,9 @@ class System:
         self.ref_kf = -1
         self.frames_since_kf = 0
         self.step: StepState | None = None
+        # The caller's host image of the last tracked frame, the viewer's
+        # snapshot (reference FrameDrawer::Update, FrameDrawer.cc:361).
+        self.last_image: np.ndarray | None = None
         self.last_Tcw_np = np.eye(4, dtype=np.float32)
         self.kf_pose_host: dict[int, np.ndarray] = {}
         self.trajectory: list[_TrajEntry] = []
@@ -339,6 +342,7 @@ class System:
             return self._track_stereo(img_left, img_right, timestamp)
 
     def _track_stereo(self, img_left, img_right, timestamp: float) -> np.ndarray:
+        self.last_image = np.asarray(img_left)
         imgs = torch.from_numpy(
             np.stack([np.asarray(img_left), np.asarray(img_right)])
             .astype(np.uint8)
@@ -383,6 +387,7 @@ class System:
             return self._track_rgbd(img, depth, timestamp)
 
     def _track_rgbd(self, img, depth, timestamp: float) -> np.ndarray:
+        self.last_image = np.asarray(img)
         image = torch.from_numpy(np.asarray(img).astype(np.uint8)).to(self.device)
         depth_map = torch.from_numpy(np.asarray(depth, np.float32)).to(self.device)
         st = self.settings
@@ -407,6 +412,7 @@ class System:
         consumed Tcw (one frame behind after initialization, see
         `async_depth`; identity until the two-view bootstrap succeeds)."""
         with self.timers.time("Tracking total / frame"):
+            self.last_image = np.asarray(img)
             image = torch.from_numpy(np.asarray(img).astype(np.uint8)).to(self.device)
             return mono.track_mono_impl(self, image, timestamp)
 

@@ -19,7 +19,13 @@ batched tracking: `vo_batch_step` (stereo) and `vo_batch_step_mono` card
 against CPU from one CPU-built state with integers equal and one launch
 a frame, a stereo batch that waits for nothing, `track_stereo_batch`
 with deferred stats from pinned staging against the CPU run; and
-`make_synthetic_map` with one `mapping_step`, card against CPU.
+`make_synthetic_map` with one `mapping_step`, card against CPU; the last
+module slice: `gba_sharded` at `make_gba_problem()`'s size at world 1 over
+NCCL against world 1 on the CPU, and 4 gloo ranks sharing the card
+against world 1 (poses 1e-4, point landmarks 5e-4, line endpoints 5e-4
+off the other run's line: tests/test_torch_parallel.py's tolerance), and
+a KITTI folder read by the native prefetcher into `track_stereo` on the
+card against the same arrays from memory (poses within 1e-5 m).
 Every test skips on a host without a card.
 
 This file imports no JAX (a GPU host need not have it, and
@@ -1201,3 +1207,92 @@ def test_synthetic_map_mapping_step_gpu_matches_cpu(cuda):
     d = (xg - xc).norm(dim=-1)[valid]
     assert float(torch.quantile(d, 0.99)) <= 1e-3
     assert int(sc[0]) > int(bc["n_pts"]) and int(sg[TMO.MSTAT_REVERT]) == 0
+
+
+# ---------------------------------------------------------------------
+# the last module slice: sharded global BA, the prefetcher
+# ---------------------------------------------------------------------
+GBA_KW = dict(rounds=2, gn_iters=2, cg_iters=8)     # dryrun_multichip's
+
+
+def _gba_gaps(a, b, n_pts):
+    """(pose, point landmark, line endpoint off b's line) largest gaps."""
+    X, Xr = a["xyz"], b["xyz"]
+    e, er = X[n_pts:].reshape(-1, 2, 3), Xr[n_pts:].reshape(-1, 2, 3)
+    d = er[:, 1] - er[:, 0]
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    off = e - er
+    off = off - np.sum(off * d[:, None], -1)[..., None] * d[:, None]
+    return (np.abs(a["Tcw"] - b["Tcw"]).max(), np.abs(X[:n_pts] - Xr[:n_pts]).max(),
+            np.abs(off).max())
+
+
+@pytest.fixture(scope="module")
+def gba_runs():
+    """`make_gba_problem()` solved by `gba_sharded` at world 1 on the card
+    (NCCL) and on the CPU (gloo), and by 4 gloo ranks sharing the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from splslam_tpu_torch.convert import ba_problem_to_numpy
+    from splslam_tpu_torch.graft_entry import make_gba_problem
+    from splslam_tpu_torch.parallel.gba_sharded import solve_on_rank
+    from splslam_tpu_torch.parallel.mesh import launch
+
+    cam, p = make_gba_problem(device="cpu")
+    pn = ba_problem_to_numpy(p)
+    return dict(
+        card=launch(solve_on_rank, 1, "cuda", timeout_s=300, args=(cam, pn, GBA_KW))[0],
+        cpu=launch(solve_on_rank, 1, "cpu", timeout_s=300, args=(cam, pn, GBA_KW))[0],
+        four=launch(solve_on_rank, 4, "cuda", backend="gloo", share_cards=True,
+                    timeout_s=300, args=(cam, pn, GBA_KW)),
+        n_pts=16384)
+
+
+def test_gba_sharded_world1_nccl_matches_cpu(cuda, gba_runs):
+    """tests/test_torch_parallel.py's tolerance: poses 1e-4, point
+    landmarks 5e-4, line endpoints 5e-4 off the CPU's line."""
+    card, cpu = gba_runs["card"], gba_runs["cpu"]
+    assert card["n_guarded"] == cpu["n_guarded"] == 0
+    assert card["Tcw"].shape == (64, 4, 4) and np.isfinite(card["xyz"]).all()
+    dT, dX, dE = _gba_gaps(card, cpu, gba_runs["n_pts"])
+    assert dT <= 1e-4 and dX <= 5e-4 and dE <= 5e-4, (dT, dX, dE)
+
+
+def test_gba_sharded_four_gloo_ranks_share_the_card(cuda, gba_runs):
+    four, card = gba_runs["four"], gba_runs["card"]
+    for o in four:
+        assert o["n_guarded"] == 0
+        np.testing.assert_array_equal(o["Tcw"], four[0]["Tcw"])
+    dT, dX, dE = _gba_gaps(four[0], card, gba_runs["n_pts"])
+    assert dT <= 1e-4 and dX <= 5e-4 and dE <= 5e-4, (dT, dX, dE)
+
+
+def test_prefetch_loader_track_stereo_gpu_matches_in_memory(cuda, tmp_path):
+    """A KITTI folder of 8-bit PNGs read by the native prefetcher into
+    `track_stereo` on the card: the pixels written, one launch a frame,
+    and the poses of the same arrays tracked from memory within 1e-5 m."""
+    from chip_smoke import write_kitti_folder
+    from splslam_tpu_torch.io.datasets import load_kitti_stereo
+    from splslam_tpu_torch.io.native import PrefetchLoader
+
+    K, bf, frames, _ = make_stereo_sequence(n_frames=10, motion="forward",
+                                            width=320, height=240)
+    pixels = write_kitti_folder(str(tmp_path), frames)
+    left, right, ts = load_kitti_stereo(str(tmp_path))
+    st = _settings(K, bf, enable_local_mapping=False, enable_relocalization=False,
+                   enable_loop_closing=False)
+    loaded = TS.System(st, TS.Sensor.STEREO, cuda)
+    OK.orb_describe.launches = 0
+    with PrefetchLoader(left, 320, 240) as dl_l, PrefetchLoader(right, 320, 240) as dl_r:
+        for i, t in enumerate(ts):
+            l, r = dl_l[i], dl_r[i]
+            np.testing.assert_array_equal(l, pixels[i][0])
+            np.testing.assert_array_equal(r, pixels[i][1])
+            loaded.track_stereo(l, r, t)
+    assert OK.orb_describe.launches == len(frames)
+    memory = TS.System(st, TS.Sensor.STEREO, cuda)
+    for i, (l, r) in enumerate(pixels):
+        memory.track_stereo(l, r, i * 0.1)
+    assert loaded.get_tracking_state() == memory.get_tracking_state()
+    a, b = loaded.poses(), memory.poses()
+    assert np.linalg.norm(a[:, :3, 3] - b[:, :3, 3], axis=-1).max() <= 1e-5

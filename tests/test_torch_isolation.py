@@ -1,6 +1,6 @@
 """The PyTorch port stands without JAX: importing it (and chip_smoke.py)
 loads no jax module, nor PyYAML or OpenCV (the YAML and image loaders
-import them where they read a file), its sources, chip_smoke.py and the
+and the viewer import them where they read or draw), its sources, chip_smoke.py and the
 card's test file import nothing of the JAX package, and chip_smoke.py fails — printing no
 result — on a host without a CUDA device (there is no CPU fallback).
 
@@ -65,6 +65,15 @@ def test_port_sources_import_no_jax_module():
             "splslam_tpu_torch/examples/_common.py",
             "splslam_tpu_torch/examples/rgbd_tum.py",
             "splslam_tpu_torch/examples/stereo_mynt.py"} <= names
+    # the last module slice: the prefetcher, the ROS grabbers, the viewer
+    # and AR overlay, the mesh and sharded global BA, the entry points
+    assert {"splslam_tpu_torch/io/native.py", "splslam_tpu_torch/ros/__init__.py",
+            "splslam_tpu_torch/ros/nodes.py", "splslam_tpu_torch/viz/__init__.py",
+            "splslam_tpu_torch/viz/draw.py", "splslam_tpu_torch/viz/viewer.py",
+            "splslam_tpu_torch/viz/ar.py", "splslam_tpu_torch/parallel/__init__.py",
+            "splslam_tpu_torch/parallel/mesh.py",
+            "splslam_tpu_torch/parallel/gba_sharded.py",
+            "splslam_tpu_torch/graft_entry.py"} <= names
     for p in files:
         for m in pat.findall(p.read_text()):
             assert m in allowed, f"{p.relative_to(ROOT)} imports {m}"
