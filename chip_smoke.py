@@ -204,6 +204,24 @@ Phases, each fatal on failure:
      (e) `dryrun_multichip(torch.cuda.device_count())`: fleet tracking
      with a summed statistic, then the sharded BA; one launch a fleet row.
      The launches of (a), (b) and (e) count into the kernel line.
+ 16. the entry point and the JAX package's proof suites, each case with
+     the counts set to 0 before it, one launch a frame built, and every
+     gate printed beside its value. `graft_entry.entry("cuda")` (its frame
+     builds an 8-slot line table, as the reference's entry) on its example
+     arguments and on a rendered grid pair, against `entry("cpu")`: the
+     inlier count and the valid lines equal (some on the grid pair), Tcw
+     within 1e-5. Then one case of each suite the GPU tests run in full,
+     at the suite's size and gates: tests/test_e2e_robustness.py's
+     dynamic object (60 corridor frames clean and with a moving patch:
+     OK, ATE within 2% of the path and within 1% of the clean run's, no
+     BA revert, at most 2 guarded iterations), tests/test_bow_retrieval.py's
+     360 places (no far retrieval, top-1 within 2 places >= 0.95 and
+     within 1 >= 0.70, median own/far score > 1.1),
+     tests/test_e2e_parity_matrix.py's tour cell of seed 5 (300 frames
+     with mapping: OK, ATE within 1.25% of the path and within
+     TOUR_TOL_PP of the JAX package's recorded value) and
+     tests/test_line_repeatability.py's floors (matcher re-association
+     0.50 / 0.57, geometric repeatability 0.62).
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -467,7 +485,8 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: main path failed: {failed}")
     imgs = torch.from_numpy(np.stack(frames[-1]).astype(np.uint8)).cuda()
     n_dev, dev_ms, orb_ms = device_kernels(lambda: build_frame_stereo(
-        imgs[0].float(), imgs[1].float(), sysm.cam, sysm.spec, sysm.scales))
+        imgs[0].float(), imgs[1].float(), sysm.cam, sysm.spec, sysm.scales,
+        sysm.line_cap))
     print(f"build_frame_stereo: {n_dev} device kernels (torch.profiler, CUDA "
           f"activity), {dev_ms:.3f} ms device time, orb_describe {orb_ms:.5f} ms")
 
@@ -484,6 +503,7 @@ def main() -> None:
     slice_launches = kitti_ros_viz_phase(st, frames, est, card)
     sharded_gba_phase(card)
     slice_launches += fleet_phase(card)
+    proof_launches = proof_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
@@ -493,7 +513,7 @@ def main() -> None:
         "launches": (launches + map_launches + reloc_launches + loop_launches
                      + live_launches + mono_launches + backend_launches
                      + rgbd_launches + batch_launches + mono_batch_launches
-                     + slice_launches),
+                     + slice_launches + proof_launches),
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1590,7 +1610,7 @@ def rgbd_phase(card, device="cuda"):
     img = torch.from_numpy(frames[30][0].astype(np.uint8)).to(device).float()
     dep = torch.from_numpy(frames[30][1] * RGBD_DEPTH_SCALE).to(device)
     n_dev, dev_ms, orb_ms = device_kernels(lambda: build_frame_rgbd(
-        img, dep, sysm.cam, sysm.spec, st.depth_map_factor))
+        img, dep, sysm.cam, sysm.spec, st.depth_map_factor, sysm.line_cap))
     print(f"build_frame_rgbd: {n_dev} device kernels, {dev_ms:.3f} ms device time, "
           f"orb_describe {orb_ms:.5f} ms, on {card}")
     spec = sysm.spec
@@ -2293,6 +2313,500 @@ def fleet_phase(card, device="cuda"):
         raise SystemExit(f"chip_smoke: dryrun_multichip launched the kernel "
                          f"{out['launches']} times for {n} fleet rows")
     return out["launches"]
+
+
+# ---- phase 16: the entry point, and the JAX package's proof suites ----
+
+PROOF_W, PROOF_H = 320, 240   # the proof suites' frames (tests/test_e2e_*.py)
+ENTRY_TCW_ATOL = 1e-5         # tests/test_torch_entry.py
+# The JAX package's tour cells of tests/test_e2e_parity_matrix.py: ATE as %
+# of the path, from its `_run_cell` on the CPU (JAX_PLATFORMS=cpu; `pytest -m
+# slow -s` prints them to two decimals). The port's tour cells are held to
+# these within TOUR_TOL_PP percentage points as well as to the suite's own
+# 1.25% gate. The trajectories are chaotic under float reordering: the port
+# on the CPU lands 0.017-0.085 points from these values; 0.25 is a fifth of
+# the gate.
+TOUR_JAX_PCT = {5: 0.5074735005035138, 7: 1.018809304200117, 9: 1.039589814319185}
+TOUR_TOL_PP = 0.25
+PHASE16_MATRIX_SEED = 5      # the cell phase 16 runs; the GPU tests run all six
+
+
+def failed_gates(title, gates):
+    """Print each gate (name, value, op, limit) beside its value; return
+    the names of those that fail."""
+    ops = {"<=": lambda a, b: a <= b, ">=": lambda a, b: a >= b,
+           "==": lambda a, b: a == b, ">": lambda a, b: a > b}
+    bad = []
+    for name, value, op, limit in gates:
+        ok = bool(ops[op](value, limit))
+        print(f"{title}: {name}: {value} {op} {limit} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            bad.append(name)
+    return bad
+
+
+def _proof_settings(K, bf, **kw):
+    from splslam_tpu_torch.slam.system import Settings
+
+    return Settings(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                    cy=float(K[1, 2]), bf=float(bf), width=PROOF_W, height=PROOF_H,
+                    n_features=600, n_levels=4, th_depth=40.0, fps=10, **kw)
+
+
+def _track_all(st, frames, device):
+    from splslam_tpu_torch.slam.system import Sensor, System
+
+    sysm = System(st, Sensor.STEREO, device)
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.1)
+    sysm.drain()
+    return sysm
+
+
+def entry_case(device):
+    """`graft_entry.entry(device)` on the reference's example arguments and
+    on a rendered grid pair (whose line detector finds segments), against
+    `entry("cpu")` on the same arguments: the inlier count and the 8-slot
+    frame's valid lines equal, Tcw within ENTRY_TCW_ATOL. Returns (gates,
+    frames built on `device`)."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch import graft_entry
+    from splslam_tpu_torch.io.synthetic import make_stereo_sequence
+    from splslam_tpu_torch.slam.frame import build_frame_stereo
+
+    _, _, grid, _ = make_stereo_sequence(n_frames=1, width=128, height=96,
+                                         texture="grid", seed=1)
+    gates = []
+    for name, imgs in (("reference args", None), ("grid pair", grid[0])):
+        out = {}
+        for dev in (device, "cpu"):
+            fn, args = graft_entry.entry(dev)
+            if imgs is not None:
+                args = tuple(torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+                             for x in imgs) + args[2:]
+            Tcw, n_in = fn(*args)
+            cam, spec, scales, _ = graft_entry._setup(dev)
+            lines = build_frame_stereo(args[0], args[1], cam, spec, scales).lines
+            out[dev] = (Tcw.cpu().numpy(), int(n_in), int(lines.valid.sum()),
+                        lines.capacity)
+        (Tg, ng, lg, cap), (Tc, nc, lc, _) = out[device], out["cpu"]
+        gates += [(f"{name}: line slots", cap, "==", 8),
+                  (f"{name}: Tcw finite", bool(np.isfinite(Tg).all()), "==", True),
+                  (f"{name}: Tcw off the CPU's", float(np.abs(Tg - Tc).max()), "<=",
+                   ENTRY_TCW_ATOL),
+                  (f"{name}: n_inliers (CPU {nc})", ng, "==", nc),
+                  (f"{name}: valid lines (CPU {lc})", lg, "==", lc)]
+        if imgs is not None:
+            gates.append((f"{name}: valid lines", lg, ">", 0))
+    return gates, 4
+
+
+def _paste_moving_object(frames, W=PROOF_W, H=PROOF_H, seed=7):
+    """tests/test_e2e_robustness.py's moving patch: a 72x56 textured patch
+    at the same pixels in both eyes, sweeping diagonally across the view."""
+    import numpy as np
+
+    patch = np.random.default_rng(seed).uniform(40, 215, size=(56, 72)).astype(np.float32)
+    out = []
+    n = len(frames)
+    for i, (l, r) in enumerate(frames):
+        l, r = np.asarray(l).copy(), np.asarray(r).copy()
+        x = int((0.15 + 0.6 * ((1.7 * i / n) % 1.0)) * (W - 72))
+        y = int((0.2 + 0.5 * ((1.1 * i / n) % 1.0)) * (H - 56))
+        for img in (l, r):
+            img[y:y + 56, x:x + 72] = patch
+        out.append((l, r))
+    return out
+
+
+def dynamic_object_case(device):
+    """tests/test_e2e_robustness.py::test_dynamic_object_does_not_break_tracking:
+    60 corridor frames, clean and with the moving patch, mapping on. Returns
+    (gates, frames built)."""
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence, path_length
+    from splslam_tpu_torch.slam.system import TrackingState
+
+    K, bf, frames, gt = make_stereo_sequence(n_frames=60, motion="forward",
+                                             width=PROOF_W, height=PROOF_H, seed=11,
+                                             scene="corridor", speed=0.5)
+    path = path_length(gt)
+    st = _proof_settings(K, bf, max_points=16384, max_keyframes=64, local_window=1024,
+                         enable_local_mapping=True)
+    clean = _track_all(st, frames, device)
+    ate_clean = ate_rmse(clean.poses(), gt)
+    sysm = _track_all(st, _paste_moving_object(frames), device)
+    ate = ate_rmse(sysm.poses(), gt)
+    print(f"dynamic object: path {path:.2f}, clean ATE {ate_clean:.5f} "
+          f"({100 * ate_clean / path:.3f}%), patch ATE {ate:.5f} ({100 * ate / path:.3f}%), "
+          f"{sysm.n_kfs} keyframes, health {sysm.health()}")
+    return [("clean state", clean.get_tracking_state().name, "==", TrackingState.OK.name),
+            ("patch state", sysm.get_tracking_state().name, "==", TrackingState.OK.name),
+            ("patch ATE", ate, "<=", 0.02 * path),
+            ("patch ATE", ate, "<=", ate_clean + 0.01 * path),
+            ("mapping_state_revert", sysm.mapper.n_state_revert, "==", 0),
+            ("mapping_guarded", sysm.mapper.n_guarded, "<=", 2)], 2 * len(frames)
+
+
+def hundreds_of_keyframes_case(device):
+    """tests/test_e2e_robustness.py::test_hundreds_of_keyframes_map: a
+    400-frame palindromic lateral shuttle with a keyframe every 3 frames,
+    then `_correct` of a measured Sim3 between the latest live keyframe and
+    the nearest early one. Returns (gates, frames built)."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence, path_length
+    from splslam_tpu_torch.slam.loop_closing import compute_sim3_attempt
+    from splslam_tpu_torch.slam.system import TrackingState
+
+    K, bf, leg, gt_leg = make_stereo_sequence(n_frames=100, motion="lateral",
+                                              width=PROOF_W, height=PROOF_H, seed=3)
+    cycle = leg + leg[-2:0:-1]
+    n_frames = 400
+    frames = [cycle[i % len(cycle)] for i in range(n_frames)]
+    gt_cycle = np.concatenate([gt_leg, gt_leg[-2:0:-1]], axis=0)
+    gt = np.stack([gt_cycle[i % len(gt_cycle)] for i in range(n_frames)])
+    st = _proof_settings(K, bf, max_points=65536, max_keyframes=256, local_window=1024,
+                         enable_local_mapping=True, force_kf_every=3, min_kf_gap=1)
+    sysm = _track_all(st, frames, device)
+    steps = sysm.mapper.n_steps
+    path = path_length(gt)
+    ate = ate_rmse(sysm.poses(), gt)
+    n_live = int(sysm.map.kfs.valid.sum())
+    print(f"hundreds of keyframes: inserted {sysm.n_kfs}, live {n_live}, mapping "
+          f"steps {steps}, ATE {ate:.5f} ({100 * ate / path:.3f}% of path), health "
+          f"{sysm.health()}")
+    gates = [("state", sysm.get_tracking_state().name, "==", TrackingState.OK.name),
+             ("keyframes inserted", sysm.n_kfs, ">=", 100),
+             ("mapping steps", steps, ">=", 90),
+             ("mapping_state_revert", sysm.mapper.n_state_revert, "==", 0),
+             ("mapping_guarded", sysm.mapper.n_guarded, "<=", max(3, steps // 25)),
+             ("ATE", ate, "<=", 0.02 * path)]
+
+    n = sysm.n_kfs
+    live = np.nonzero(sysm.map.kfs.valid[:n].cpu().numpy())[0]
+    Tcw_all = sysm.map.kfs.Tcw[:n].cpu().numpy()
+    kf = int(live[-1])
+    centre = lambda T: -T[:3, :3].T @ T[:3, 3]
+    d = [np.linalg.norm(centre(Tcw_all[c]) - centre(Tcw_all[kf]))
+         for c in live[: len(live) // 2]]
+    best = int(live[int(np.argmin(d))])
+    K3 = sysm.cam.K.to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(kf)
+    n_m, n_opt, n_proj, _, S12 = compute_sim3_attempt(sysm.map, kf, best, K3, True,
+                                                      generator=gen)
+    t0 = time.perf_counter()
+    sysm.loop_closer._correct(kf, best, S12)
+    wall = time.perf_counter() - t0
+    ate2 = ate_rmse(sysm.poses_reconstructed(), gt)
+    print(f"loop pair ({kf}, {best}) {min(d):.3f} apart: matches {int(n_m)}, Sim3 "
+          f"inliers {int(n_opt)}, projected {int(n_proj)}; corrected {len(live)} live "
+          f"keyframes in {wall:.1f} s, ATE after {ate2:.5f} ({100 * ate2 / path:.3f}%)")
+    gates += [("Sim3 inliers", int(n_opt), ">=", 10),
+              ("loop_guarded", sysm.loop_closer.n_guarded, "==", 0),
+              ("poses finite after", bool(torch.isfinite(sysm.map.kfs.Tcw[:n]).all()),
+               "==", True),
+              ("ATE after the correction", ate2, "<=", 0.025 * path)]
+    return gates, n_frames
+
+
+def _place_views(n_places):
+    """tests/test_bow_retrieval.py's places: views 0.55 units apart over the
+    textured plane, and each revisited from a 0.1-unit offset + 1.5 deg yaw."""
+    import numpy as np
+
+    from splslam_tpu_torch.io.synthetic import PlaneScene, make_texture
+
+    K = np.array([[200.0, 0, PROOF_W / 2], [0, 200.0, PROOF_H / 2], [0, 0, 1]], np.float32)
+    scene = PlaneScene(make_texture(seed=42, size=8192), z0=3.0, z1=7.0,
+                       px_per_unit=40.0)
+    th = np.deg2rad(1.5)
+    Ry = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                   [-np.sin(th), 0, np.cos(th)]], np.float32)
+    originals, revisits = [], []
+    for i in range(n_places):
+        Twc = np.eye(4)
+        Twc[0, 3] = 0.55 * i
+        originals.append(scene.render(K, Twc, PROOF_H, PROOF_W))
+        Twc2 = Twc.copy()
+        Twc2[:3, :3] = Ry
+        Twc2[0, 3] += 0.1
+        Twc2[1, 3] += 0.05
+        revisits.append(scene.render(K, Twc2, PROOF_H, PROOF_W))
+    return originals, revisits
+
+
+def _bow_query(voc, spec, img, device):
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.bow import vocabulary as V
+    from splslam_tpu_torch.ops.orb import extract_orb
+
+    f = extract_orb(torch.from_numpy(np.asarray(img, np.float32)).to(device), spec)
+    return V.query_bow(voc.level_desc, voc.weights, voc.k, voc.depth, f.desc, f.valid)
+
+
+def place_retrieval_case(device, n_places=360):
+    """tests/test_bow_retrieval.py::test_top1_retrieval_precision_at_map_scale
+    with the bundled 10^5-word vocabulary: top-1 of each revisit among the
+    places by the L1 score. Returns (gates, frames built)."""
+    import numpy as np
+
+    from splslam_tpu_torch.bow import vocabulary as V
+    from splslam_tpu_torch.ops.pyramid import PyramidSpec
+
+    voc = V.load(V.default_vocab_path(), device)
+    spec = PyramidSpec.create(PROOF_H, PROOF_W, n_features=500, n_levels=4)
+    originals, revisits = _place_views(n_places)
+    db = np.stack([_bow_query(voc, spec, im, device).cpu().numpy() for im in originals])
+    q = np.stack([_bow_query(voc, spec, im, device).cpu().numpy() for im in revisits])
+    scores = np.minimum(db[None, :, :], q[:, None, :]).sum(-1)
+    off = scores.argmax(1) - np.arange(n_places)
+    own = scores[np.arange(n_places), np.arange(n_places)]
+    far = scores.copy()
+    idx = np.arange(n_places)
+    for d in range(-3, 4):
+        ok = (idx + d >= 0) & (idx + d < n_places)
+        far[idx[ok], idx[ok] + d] = -1
+    sep = float(np.median(own / np.maximum(far.max(1), 1e-9)))
+    print(f"place retrieval, {n_places} places ({voc.n_words} words): far misses "
+          f"{int((np.abs(off) > 3).sum())}, top-1 within 1 {(np.abs(off) <= 1).mean():.4f}, "
+          f"within 2 {(np.abs(off) <= 2).mean():.4f}, median own/far {sep:.3f}")
+    return [("far misses", int((np.abs(off) > 3).sum()), "==", 0),
+            ("top-1 within 2 places", float((np.abs(off) <= 2).mean()), ">=", 0.95),
+            ("top-1 within 1 place", float((np.abs(off) <= 1).mean()), ">=", 0.70),
+            ("median own/far score", sep, ">", 1.1)], 2 * n_places
+
+
+def tracked_map_retrieval_case(device, n_frames=950):
+    """tests/test_bow_retrieval.py::test_retrieval_on_tracked_300kf_map: a
+    950-frame lateral track with a keyframe every 3 frames (mapping and
+    loop closing off), then a revisit query every 10th keyframe scored
+    against the keyframe rows by `reloc_scores`. Returns (gates, frames
+    built)."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import PlaneScene, make_texture
+    from splslam_tpu_torch.slam.reloc import reloc_scores
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    FX, BASE = 200.0, 0.12
+    K = np.array([[FX, 0, PROOF_W / 2], [0, FX, PROOF_H / 2], [0, 0, 1]], np.float32)
+    scene = PlaneScene(make_texture(seed=42, size=8192), z0=3.0, z1=7.0,
+                       px_per_unit=40.0)
+    st = Settings(fx=FX, fy=FX, cx=PROOF_W / 2, cy=PROOF_H / 2, bf=FX * BASE,
+                  width=PROOF_W, height=PROOF_H, n_features=500, n_levels=4,
+                  th_depth=60.0, fps=10, max_points=65536, max_keyframes=512,
+                  local_window=1024, enable_local_mapping=False, force_kf_every=2,
+                  min_kf_gap=1, enable_loop_closing=False)
+    sysm = System(st, Sensor.STEREO, device)
+    kf_x = {}
+    for i in range(n_frames):
+        Twc = np.eye(4)
+        Twc[0, 3] = 0.04 * i
+        Twc[1, 3] = 0.01 * np.sin(i * 0.3)
+        Twc_r = Twc.copy()
+        Twc_r[0, 3] += BASE
+        n_before = sysm.n_kfs
+        sysm.track_stereo(scene.render(K, Twc, PROOF_H, PROOF_W),
+                          scene.render(K, Twc_r, PROOF_H, PROOF_W), i * 0.1)
+        if sysm.n_kfs > n_before:
+            kf_x[sysm.n_kfs - 1] = float(Twc[0, 3])
+    sysm.drain()
+    n_kfs = sysm.n_kfs
+    th = np.deg2rad(1.5)
+    Ry = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                   [-np.sin(th), 0, np.cos(th)]], np.float32)
+    xs = np.array([kf_x.get(k, np.nan) for k in range(n_kfs)])
+    exclude = torch.zeros((st.max_keyframes,), dtype=torch.bool, device=device)
+    offs, n_far = [], 0
+    for k in range(5, n_kfs - 5, 10):
+        Twc = np.eye(4)
+        Twc[:3, :3] = Ry
+        Twc[0, 3] = xs[k] + 0.1
+        Twc[1, 3] = 0.05
+        q = _bow_query(sysm.vocab, sysm.spec, scene.render(K, Twc, PROOF_H, PROOF_W),
+                       device)
+        scores = reloc_scores(sysm.kf_bow.ids, sysm.kf_bow.vals, sysm.map.kfs.valid,
+                              q, exclude).cpu().numpy()[:n_kfs]
+        d = abs(xs[int(scores.argmax())] - xs[k])
+        offs.append(d)
+        n_far += d > 40 * BASE
+    offs = np.array(offs)
+    near = float((offs <= 16 * BASE).mean())
+    print(f"tracked-map retrieval: {n_kfs} keyframes over {0.04 * n_frames:.1f} units, "
+          f"{len(offs)} queries, top-1 within 1.9 units {near:.4f}, median off "
+          f"{np.median(offs):.3f}, far misses {n_far}")
+    return [("state", sysm.get_tracking_state().name, "==", TrackingState.OK.name),
+            ("keyframes", n_kfs, ">=", 300),
+            ("far misses", int(n_far), "==", 0),
+            ("top-1 within 16 keyframes", near, ">=", 0.9)], n_frames + len(offs)
+
+
+def matrix_cell_case(device, profile, seed):
+    """One cell of tests/test_e2e_parity_matrix.py: "tour" (the two-plane
+    scene, 300 frames, a keyframe every 4) gated at 1.25% of the path and
+    held to the JAX package's value within TOUR_TOL_PP; "corridor"
+    (forward, 220 frames at speed 0.6) gated at 1%. Returns (gates, frames
+    built)."""
+    from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence, path_length
+    from splslam_tpu_torch.slam.system import TrackingState
+
+    if profile == "tour":
+        motion, scene, n, speed, force_kf, gate = "tour", "planes", 300, 1.0, 4, 1.25
+    else:
+        motion, scene, n, speed, force_kf, gate = "forward", "corridor", 220, 0.6, 0, 1.0
+    K, bf, frames, gt = make_stereo_sequence(n_frames=n, motion=motion, width=PROOF_W,
+                                             height=PROOF_H, lighting_drift=0.1,
+                                             seed=seed, scene=scene, speed=speed)
+    st = _proof_settings(K, bf, max_points=16384, max_keyframes=128, local_window=1024,
+                         enable_local_mapping=True, force_kf_every=force_kf, min_kf_gap=1)
+    sysm = _track_all(st, frames, device)
+    path = path_length(gt)
+    pct = 100 * ate_rmse(sysm.poses(), gt) / path
+    print(f"matrix {profile} seed {seed}: path {path:.3f}, ATE {pct:.4f}% of path "
+          f"(gate {gate}%), {sysm.n_kfs} keyframes, health {sysm.health()}")
+    gates = [("state", sysm.get_tracking_state().name, "==", TrackingState.OK.name),
+             ("ATE % of path", pct, "<=", gate)]
+    if profile == "tour":
+        gates.append((f"ATE % off the JAX package's {TOUR_JAX_PCT[seed]:.4f}",
+                      abs(pct - TOUR_JAX_PCT[seed]), "<=", TOUR_TOL_PP))
+    return gates, n
+
+
+def _plane_frames(n=6):
+    """tests/test_line_repeatability.py's grid-plane pairs: frame i at x =
+    0.05 i and frame i+1 at x = 0.05 (i+1), 0.01 up, with their Tcw."""
+    import numpy as np
+
+    from splslam_tpu_torch.io.synthetic import PlaneScene, make_grid_texture
+
+    K = np.array([[200.0, 0, PROOF_W / 2], [0, 200.0, PROOF_H / 2], [0, 0, 1]], np.float32)
+    scene = PlaneScene(make_grid_texture(seed=0), z0=3.0, z1=None)
+    out = []
+    for i in range(n):
+        C1, C2 = np.eye(4), np.eye(4)
+        C1[0, 3] = 0.05 * i
+        C2[0, 3] = 0.05 * (i + 1)
+        C2[1, 3] = 0.01
+        out.append((scene.render(K, C1, PROOF_H, PROOF_W), scene.render(K, C2, PROOF_H, PROOF_W),
+                    np.linalg.inv(C1).astype(np.float32), np.linalg.inv(C2).astype(np.float32)))
+    return out
+
+
+def line_repeatability_case(device):
+    """tests/test_line_repeatability.py: `extract_lines` (64 slots) on 6
+    grid-plane pairs; the matcher-level re-association of
+    `line_projection_match` (rows and columns whose match lies within 8 px
+    and 0.15 rad of the projected line) and the geometric repeatability
+    (midpoint within 12 px of the motion-predicted one, angle within 0.1
+    rad, length within 50%). Returns (gates, frames built)."""
+    import numpy as np
+    import torch
+
+    from splslam_tpu_torch.geometry.camera import Camera
+    from splslam_tpu_torch.ops.lines import extract_lines
+    from splslam_tpu_torch.slam.tracking import line_projection_match
+
+    FX, W, H = 200.0, PROOF_W, PROOF_H
+    cam = Camera.create(FX, FX, W / 2, H / 2, bf=24.0, width=W, height=H)
+    host = lambda f: {k: getattr(f, k).cpu().numpy()
+                      for k in ("valid", "seg", "angle", "midpoint", "length")}
+
+    def unproj_plane(Tc, uv):
+        Twc = np.linalg.inv(Tc)
+        d = np.stack([(uv[:, 0] - W / 2) / FX, (uv[:, 1] - H / 2) / FX,
+                      np.ones(len(uv))], -1) @ Twc[:3, :3].T
+        t = (3.0 - Twc[2, 3]) / d[:, 2]
+        return Twc[:3, 3][None] + d * t[:, None]
+
+    rows, cols, reps = [], [], []
+    for im1, im2, T1, T2 in _plane_frames():
+        f1, f2 = (extract_lines(torch.from_numpy(im).to(device), capacity=64)
+                  for im in (im1, im2))
+        h1, h2 = host(f1), host(f2)
+        v1, v2 = h1["valid"], h2["valid"]
+        S, E = unproj_plane(T1, h1["seg"][:, :2]), unproj_plane(T1, h1["seg"][:, 2:4])
+        xyz3 = np.stack([S, 0.5 * (S + E), E], 1).astype(np.float32)
+        mt, _ = line_projection_match(
+            cam, torch.from_numpy(T2).to(device), f2, torch.from_numpy(xyz3).to(device),
+            f1.desc, f1.length, f1.valid, torch.zeros((64,), dtype=torch.bool,
+                                                      device=device))
+        mt = mt.cpu().numpy()
+        good, goodcols = 0, set()
+        for j in np.nonzero(v1)[0]:
+            c = mt[j]
+            if c < 0:
+                continue
+            pc = xyz3[j] @ T2[:3, :3].T + T2[:3, 3]
+            uv = np.stack([FX * pc[:, 0] / pc[:, 2] + W / 2,
+                           FX * pc[:, 1] / pc[:, 2] + H / 2], -1)
+            d2 = uv[2] - uv[0]
+            dv = d2 / max(np.linalg.norm(d2), 1e-6)
+            perp = abs((h2["midpoint"][c] - uv[1]) @ np.array([-dv[1], dv[0]]))
+            ang = np.abs(np.angle(np.exp(1j * (h2["angle"][c] - np.arctan2(d2[1], d2[0])))))
+            if perp < 8.0 and min(ang, np.pi - ang) < 0.15:
+                good += 1
+                goodcols.add(int(c))
+        rows.append(good / max(v1.sum(), 1))
+        cols.append(len(goodcols) / max(v2.sum(), 1))
+
+        m1, m2 = h1["midpoint"][v1], h2["midpoint"][v2]
+        a1, a2 = h1["angle"][v1], h2["angle"][v2]
+        l1, l2 = h1["length"][v1], h2["length"][v2]
+        pred = m1 + np.array([-FX * 0.05 / 3.0, -FX * 0.01 / 3.0])
+        hit = 0
+        for j in range(len(m1)):
+            ang = np.abs(np.angle(np.exp(1j * (a2 - a1[j]))))
+            ok = ((np.linalg.norm(m2 - pred[j], axis=-1) < 12.0)
+                  & (np.minimum(ang, np.pi - ang) < 0.1)
+                  & (np.abs(l2 - l1[j]) < 0.5 * np.maximum(l2, l1[j])))
+            hit += bool(ok.any())
+        reps.append(hit / max(len(m1), 1))
+    row, col, rep = (float(np.mean(x)) for x in (rows, cols, reps))
+    print(f"line repeatability: matcher re-association row-side {row:.4f} col-side "
+          f"{col:.4f}, geometric {rep:.4f}")
+    return [("matcher re-association, rows", row, ">=", 0.50),
+            ("matcher re-association, columns", col, ">=", 0.57),
+            ("geometric repeatability", rep, ">=", 0.62)], 0
+
+
+def proof_phase(card, device="cuda"):
+    """Phase 16: `entry()` with its 8-slot line table on the card against
+    the CPU, then one case of each proof suite the port holds to the JAX
+    package's gates: the dynamic object (robustness), the 360-place
+    retrieval, the tour cell of seed PHASE16_MATRIX_SEED (the parity
+    matrix) and the line repeatability floors. Each gate prints beside its
+    value; the kernel launches of the phase (one a frame built) are
+    counted from 0 and returned."""
+    from splslam_tpu_torch.ops import orb_kernel as OK
+
+    t_phase = time.perf_counter()
+    cases = [("entry", lambda: entry_case(device)),
+             ("dynamic object", lambda: dynamic_object_case(device)),
+             ("place retrieval", lambda: place_retrieval_case(device)),
+             (f"matrix tour seed {PHASE16_MATRIX_SEED}",
+              lambda: matrix_cell_case(device, "tour", PHASE16_MATRIX_SEED)),
+             ("line repeatability", lambda: line_repeatability_case(device))]
+    total, bad = 0, []
+    for title, run in cases:
+        OK.orb_describe.launches = 0
+        t0 = time.perf_counter()
+        gates, built = run()
+        launches = OK.orb_describe.launches
+        total += launches
+        bad += [f"{title}: {g}" for g in failed_gates(title, gates + [
+            ("kernel launches, one a frame built", launches, "==", built)])]
+        print(f"{title}: {time.perf_counter() - t0:.1f} s on {card}")
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s, kernel launches {total}")
+    if bad:
+        raise SystemExit(f"chip_smoke: phase 16 failed: {bad}")
+    return total
 
 
 def _line_ints(m):

@@ -74,7 +74,7 @@ def main() -> None:
     with_scales = "scales" in inspect.signature(build_frame_stereo).parameters
     build = smoke.device_kernels(lambda: build_frame_stereo(
         imgs[0].float(), imgs[1].float(), sysm.cam, sysm.spec,
-        *((sysm.scales,) if with_scales else ())))
+        *((sysm.scales,) if with_scales else ()), line_capacity=sysm.line_cap))
     track = smoke.device_kernels(
         lambda: sysm.track_stereo(*frames[-1], len(frames) * 0.1))
     print(json.dumps({

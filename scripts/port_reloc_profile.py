@@ -112,7 +112,7 @@ def main() -> None:
     def frame_of(imgs):
         t = torch.from_numpy(np.stack(imgs).astype(np.uint8)).cuda()
         return build_frame_stereo(t[0].float(), t[1].float(), cam, sysm.spec,
-                                  sysm.scales)
+                                  sysm.scales, sysm.line_cap)
 
     def profile(fn):
         n, dev_ms, _ = smoke.device_kernels(fn)

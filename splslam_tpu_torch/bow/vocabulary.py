@@ -14,9 +14,10 @@ Vocabularies are `.npz` files in the reference's format (`level{i}`
 uint32 tables, `weights`, `k`, `depth`). The bundled ones live in the
 JAX package's `assets/` folder; `default_vocab_path` finds them by file
 path and they are read as data, never imported, so the 3.7 MB of
-vocabularies are not duplicated. `load_orbslam_txt` reads the reference's
-ORBvoc.txt into the same layout. `train` builds a vocabulary offline by
-hierarchical binary k-medians on host numpy, as the reference's does.
+vocabularies are not duplicated; `save` writes the same format.
+`load_orbslam_txt` reads the reference's ORBvoc.txt into the same
+layout. `train` builds a vocabulary offline by hierarchical binary
+k-medians on host numpy, as the reference's does.
 """
 
 from __future__ import annotations
@@ -167,6 +168,20 @@ def train(descriptors: np.ndarray, k: int = 10, depth: int = 3,
     weights = np.maximum(idf, 0.0).astype(np.float32)
     return Vocab(tuple(torch.from_numpy(d.view(np.int32)).to(device) for d in level_desc),
                  torch.from_numpy(weights).to(device), k, depth)
+
+
+def save(vocab: Vocab, path: str) -> None:
+    """Write a vocabulary as `.npz` in the reference's format (`level{i}`
+    uint32 tables, `weights`, `k`, `depth`), which `load` and the JAX
+    package's `load` read."""
+    np.savez_compressed(
+        path,
+        weights=vocab.weights.cpu().numpy(),
+        k=vocab.k,
+        depth=vocab.depth,
+        **{f"level{i}": d.cpu().numpy().view(np.uint32)
+           for i, d in enumerate(vocab.level_desc)},
+    )
 
 
 def default_vocab_path() -> str:

@@ -2,8 +2,10 @@
 
 The port keeps the intrinsics as Python floats, each rounded to float32
 at creation, so arithmetic against float32 tensors sees exactly the
-values the reference stores as f32 scalars. `undistort_points` inverts
-the radial-tangential model for monocular frames with distortion.
+values the reference stores as f32 scalars. `project` / `project_world`
+are the pinhole projection (the pipeline works on undistorted
+keypoints), `undistort_points` inverts the radial-tangential model for
+monocular frames with distortion.
 """
 
 from __future__ import annotations
@@ -40,6 +42,47 @@ class Camera(NamedTuple):
         return Camera(_f32(fx), _f32(fy), _f32(cx), _f32(cy), _f32(k1),
                       _f32(k2), _f32(p1), _f32(p2), _f32(k3), _f32(bf),
                       int(width), int(height))
+
+    @property
+    def K(self) -> torch.Tensor:
+        """The 3x3 float32 intrinsic matrix (on the CPU)."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
+                             [0.0, 0.0, 1.0]], dtype=torch.float32)
+
+    @property
+    def has_distortion(self) -> bool:
+        """True, as in the JAX package: whether a frame is undistorted is
+        decided by the caller's settings (`Settings.has_distortion`)."""
+        return True
+
+
+def project(cam: Camera, pts_cam: torch.Tensor):
+    """Camera-frame 3D points (N,3) -> pixel coords (N,2), depth (N,).
+    Pure pinhole (no distortion); depths within 1e-6 of 0 divide by 1e-6."""
+    z = pts_cam[..., 2]
+    z_safe = torch.where(torch.abs(z) < 1e-6, 1e-6, z)
+    u = cam.fx * pts_cam[..., 0] / z_safe + cam.cx
+    v = cam.fy * pts_cam[..., 1] / z_safe + cam.cy
+    return torch.stack([u, v], dim=-1), z
+
+
+def backproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixels (N,2) + depth (N,) -> camera-frame 3D points (N,3)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx * depth
+    y = (uv[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)
+
+
+def project_world(cam: Camera, Tcw: torch.Tensor, pts_w: torch.Tensor):
+    """World points (N,3) through pose Tcw (4,4) -> (uv (N,2), depth (N,))."""
+    return project(cam, pts_w @ Tcw[:3, :3].T + Tcw[:3, 3])
+
+
+def in_image(cam: Camera, uv: torch.Tensor, border: float = 0.0) -> torch.Tensor:
+    """Visibility mask of pixel coords (N,2): inside the image, `border`
+    pixels clear of its edges."""
+    return ((uv[..., 0] >= border) & (uv[..., 0] < cam.width - border)
+            & (uv[..., 1] >= border) & (uv[..., 1] < cam.height - border))
 
 
 def distort_normalized(cam: Camera, xy: torch.Tensor) -> torch.Tensor:

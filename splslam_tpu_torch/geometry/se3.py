@@ -1,5 +1,5 @@
-"""SE(3) exponential map and retraction, and the Sim(3) group (port of
-splslam_tpu/geometry/se3.py).
+"""SE(3) exponential and logarithm maps, inverse, point transform and
+retraction, and the Sim(3) group (port of splslam_tpu/geometry/se3.py).
 
 Poses are 4x4 float32 matrices (world-to-camera `Tcw`); tangents are
 `[rho(3), phi(3)]`, and `[rho, phi, sigma]` for Sim(3). The small-angle
@@ -78,6 +78,45 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
 def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative update exp(xi) @ T (g2o VertexSE3Expmap)."""
     return se3_exp(xi) @ T
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> axis-angle. Batched. Within 1e-3 rad of pi the
+    axis comes from the diagonal of R, signed by the off-diagonal
+    differences, as in the reference."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_t = torch.sin(theta)
+    # theta / (2 sin theta), series near 0
+    scale = torch.where(torch.abs(sin_t) > _EPS,
+                        theta / (2.0 * sin_t + _EPS * torch.sign(sin_t + _EPS)),
+                        0.5 + theta * theta / 12.0)
+    small = w * scale[..., None]
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp((diag + 1.0) * 0.5, min=0.0))
+    signs = torch.where(w < 0, -1.0, 1.0)
+    big = axis * signs * theta[..., None]
+    return torch.where((theta > (torch.pi - 1e-3))[..., None], big, small)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """4x4 transform (...,4,4) -> tangent [rho, phi] (...,6)."""
+    phi = so3_log(T[..., :3, :3])
+    rho = torch.linalg.solve_ex(_left_jacobian(phi), T[..., :3, 3:4])[0][..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid transform (...,4,4): (R^T, -R^T t)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return rt_to_mat(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (...,4,4) to points (...,N,3) or (N,3)."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
 
 
 # ---------------------------------------------------------------------------

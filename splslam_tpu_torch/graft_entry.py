@@ -1,8 +1,9 @@
 """Entry points of the port: the single-device VO step and the multi-device
 dry run (counterpart of the repo root's `__graft_entry__.py`).
 
-`entry()` returns the stereo VO forward step (frame build -> motion-model
-match -> pose GN -> local-map match -> pose GN) with example arguments.
+`entry()` returns the stereo VO forward step (frame build with an 8-slot
+line table -> motion-model match -> pose GN -> local-map match -> pose
+GN) with example arguments.
 
 `dryrun_multichip(n)` runs one step of the fleet over n local ranks
 (`parallel.mesh.launch`): each rank tracks its shard of an n-sequence
@@ -66,8 +67,10 @@ def _example_args(spec, local_m, batch: int | None = None):
 
 def _fleet_step_fn(cam, spec, scales):
     """fn(imgL, imgR, *tracker state, *window), every argument with a
-    leading batch axis B: B frames built, then tracked by
-    `batched_track_step`. Returns (Tcw [B,4,4], n_inliers [B])."""
+    leading batch axis B: B frames built at `build_frame_stereo`'s default
+    line capacity (the line detector runs with 8 slots on the left image,
+    as in the reference's entry), then tracked by `batched_track_step`.
+    Returns (Tcw [B,4,4], n_inliers [B])."""
     from splslam_tpu_torch.parallel.mesh import _tree_map, batched_track_step
     from splslam_tpu_torch.slam.frame import build_frame_stereo
     from splslam_tpu_torch.slam.tracking import LocalWindow

@@ -95,9 +95,11 @@ def load_kitti_mono(seq_dir: str):
 # ----------------------------------------------------------------------
 # EuRoC MAV
 # ----------------------------------------------------------------------
-def load_euroc(seq_dir: str):
+def load_euroc(seq_dir: str, ts_file: str | None = None):
     """mav0/cam0 (and cam1) with data.csv timestamps in ns (reference
-    mono_euroc.cc / stereo_euroc.cc). Returns (cam0, cam1 or None, ts[s])."""
+    mono_euroc.cc / stereo_euroc.cc). Returns (cam0, cam1 or None, ts[s]).
+    `ts_file` is accepted and ignored, as in the JAX package: the
+    timestamps are cam0's data.csv."""
     cam0 = os.path.join(seq_dir, "mav0", "cam0", "data")
     cam1 = os.path.join(seq_dir, "mav0", "cam1", "data")
     csv = os.path.join(seq_dir, "mav0", "cam0", "data.csv")

@@ -11,6 +11,7 @@ splslam_tpu/ops/stereo.py).
 
 `depth_from_rgbd` is the RGB-D counterpart: depth read from the
 registered depth image, a virtual right coordinate from it.
+`bilinear_sample` and `masked_median` are the module's public helpers.
 
 The reference picks its samples with one-hot column matmuls over
 128-wide row tiles (a TPU gather workaround). Here the same samples are
@@ -34,6 +35,22 @@ from splslam_tpu_torch.ops.match import (
 _W = 5      # correlation half-window (11x11 patch, reference w=5)
 _R = 5      # search half-range in scaled pixels (reference L=5)
 _TILE, _STRIDE = 128, 32  # the reference's sample tiles (see module doc)
+
+
+def bilinear_sample(image: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample image (H,W) at fractional coords xy (...,2) -> (...);
+    coordinates are clamped to [0, W-1.001] x [0, H-1.001]."""
+    H, W = image.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    flat = image.reshape(-1)
+    base = (y0 * W + x0).long()
+    return (flat[base] * (1 - fx) * (1 - fy) + flat[base + 1] * fx * (1 - fy)
+            + flat[base + W] * (1 - fx) * fy + flat[base + W + 1] * fx * fy)
 
 
 def masked_median(values: torch.Tensor, mask: torch.Tensor,

@@ -38,6 +38,16 @@ class PointObs(NamedTuple):
     mask: torch.Tensor        # [N] bool — observation exists
     ur: torch.Tensor | None = None
 
+    @staticmethod
+    def empty(n: int, device="cuda") -> "PointObs":
+        """n unobserved rows (zeros, unit information, mask off)."""
+        return PointObs(
+            torch.zeros((n, 3), device=device),
+            torch.zeros((n, 2), device=device),
+            torch.ones((n,), device=device),
+            torch.zeros((n,), dtype=torch.bool, device=device),
+        )
+
 
 class LineObs(NamedTuple):
     """Fixed-size line observation table (midpoint form) for one frame."""

@@ -67,16 +67,17 @@ def build_frame_stereo(
     cam: Camera,
     spec: PyramidSpec,
     scales: torch.Tensor,
-    line_capacity: int = 1,
+    line_capacity: int = 8,
     line_cfg: tuple = LINE_CFG,
 ) -> FrameData:
     """Stereo frame: ORB on both images (described together, one kernel
     launch on a GPU) + row-constrained stereo matching with subpixel
     disparity (reference Frame ctor src/Frame.cc:99-155). The reference
     keeps stereo point-only (src/Tracking.cc:321-323); a line_capacity > 1
-    extracts lines from the left image. `scales`: the pyramid's scale
-    factors, already on the images' device (a host list copied here would
-    make every frame wait for the card)."""
+    extracts lines from the left image, as the default 8 (the JAX
+    package's) does; `System` passes 1 when lines are off. `scales`: the
+    pyramid's scale factors, already on the images' device (a host list
+    copied here would make every frame wait for the card)."""
     feat_l, feat_r = extract_orb_pair(img_left, img_right, spec)
     u_right, depth = stereo_match(feat_l, feat_r, img_left, img_right,
                                   scales, cam.bf, cam.fx)
@@ -91,7 +92,7 @@ def build_frame_rgbd(
     cam: Camera,
     spec: PyramidSpec,
     depth_factor: float = 1.0,
-    line_capacity: int = 1,
+    line_capacity: int = 8,
     line_cfg: tuple = LINE_CFG,
 ) -> FrameData:
     """RGB-D frame (reference Frame ctor src/Frame.cc:157-210): ORB on the

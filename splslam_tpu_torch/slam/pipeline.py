@@ -350,7 +350,7 @@ def vo_frame_step(
     m_local: int = 2048,
     scale_factor: float = 1.2,
     n_levels: int = 8,
-    line_capacity: int = 1,
+    line_capacity: int = 8,
     line_cfg: tuple = LINE_CFG,
     loc_mode: bool = False,
 ) -> tuple[MapState, StepState, torch.Tensor]:
@@ -382,7 +382,7 @@ def vo_frame_step_rgbd(
     scale_factor: float = 1.2,
     n_levels: int = 8,
     depth_factor: float = 1.0,
-    line_capacity: int = 1,
+    line_capacity: int = 8,
     line_cfg: tuple = LINE_CFG,
     loc_mode: bool = False,
 ) -> tuple[MapState, StepState, torch.Tensor]:

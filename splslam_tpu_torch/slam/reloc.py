@@ -33,14 +33,14 @@ from __future__ import annotations
 import torch
 
 from splslam_tpu_torch.bow.vocabulary import score_rows
-from splslam_tpu_torch.geometry.camera import Camera
+from splslam_tpu_torch.geometry.camera import Camera, project_world
 from splslam_tpu_torch.ops import match as M
 from splslam_tpu_torch.ops.linalg import nullspace_vector, rotation_and_singular_values
 from splslam_tpu_torch.optim.pose_gn import (CHI2_LINE, CHI2_POINT, LineObs, PointObs,
                                              line_coefficients, pose_optimize)
 from splslam_tpu_torch.slam.frame import FrameData
 from splslam_tpu_torch.slam.mapping_ops import _last_writer
-from splslam_tpu_torch.slam.tracking import _project, _scatter_rows
+from splslam_tpu_torch.slam.tracking import _scatter_rows
 
 N_HYP = 192      # PnP hypotheses an attempt
 N_HYP_LINES = 128  # EPnL hypotheses an attempt
@@ -201,7 +201,7 @@ def proj_round(cam: Camera, frame: FrameData, dist, kf_fvalid, kf_lm,
     column: the highest row wins, as the reference's scatter keeps its
     last write. `ln_obs`: the line rows of the solve (None: points only).
     Returns (PoseOptResult, gid [N], xyz [N,3])."""
-    uv, z = _project(Tcw, cam, kf_lm_xyz)
+    uv, z = project_world(cam, Tcw, kf_lm_xyz)
     row_ok = (kf_lm >= 0) & kf_fvalid & (z > 0.1)
     wmask = M.window_mask(uv, frame.feat.xy, window)
     d2 = M.masked_distances(dist, row_ok, frame.feat.valid & (gid_c < 0), wmask)
@@ -293,7 +293,7 @@ def reloc_attempt(
         T0 = torch.where(use_lines, TL, T0)
         # Under a line seed the points re-enter only where they reproject
         # within a loose 3x gate, so a wrong seed keeps no point support.
-        uvL, zL = _project(TL, cam, assoc_xyz)
+        uvL, zL = project_world(cam, TL, assoc_xyz)
         chiL = torch.sum((uvL - frame.feat.xy) ** 2, dim=-1) / frame.feat.sigma2
         inl0 = torch.where(use_lines, has & (zL > 0.1) & (chiL <= 3.0 * CHI2_POINT),
                            inl0)

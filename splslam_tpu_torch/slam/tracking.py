@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from splslam_tpu_torch.geometry.camera import Camera
+from splslam_tpu_torch.geometry.camera import Camera, in_image, project_world
 from splslam_tpu_torch.ops import match as M
 from splslam_tpu_torch.optim.pose_gn import (LineObs, PointObs, line_coefficients,
                                              pose_optimize)
@@ -94,17 +94,6 @@ def _scatter_rows(n: int, cols: torch.Tensor, ok: torch.Tensor,
     return buf[:n]
 
 
-def _project(Tcw, cam: Camera, xyz):
-    R = Tcw[:3, :3]
-    t = Tcw[:3, 3]
-    pc = xyz @ R.T + t
-    z = pc[:, 2]
-    zs = torch.where(torch.abs(z) < 1e-6, 1e-6, z)
-    u = cam.fx * pc[:, 0] / zs + cam.cx
-    v = cam.fy * pc[:, 1] / zs + cam.cy
-    return torch.stack([u, v], dim=-1), z
-
-
 def _ur_gate(cam: Camera, uv_pred, z, cur_ur, radius):
     """Stereo right-coordinate candidate gate: for keypoints with ur >= 0
     require |u_pred - bf/z - ur| <= radius; mono keypoints are exempt."""
@@ -115,18 +104,13 @@ def _ur_gate(cam: Camera, uv_pred, z, cur_ur, radius):
     return (cur_ur[None, :] < 0) | (err <= radius)
 
 
-def _in_img(cam: Camera, uv):
-    return ((uv[:, 0] >= 0) & (uv[:, 0] < cam.width)
-            & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height))
-
-
 def motion_model_match(cam: Camera, scales, T_pred, cur: FrameData, last_octave,
                        last_angle, last_desc, last_lm_xyz, last_lm_ok, th: float):
     """SearchByProjection(cur, last, th): project last frame's landmarks
     with the predicted pose, window-search the current frame. Returns
     (row->col matches [N_last], dists)."""
-    uv_pred, z = _project(T_pred, cam, last_lm_xyz)
-    row_ok = last_lm_ok & (z > 0.1) & _in_img(cam, uv_pred)
+    uv_pred, z = project_world(cam, T_pred, last_lm_xyz)
+    row_ok = last_lm_ok & (z > 0.1) & in_image(cam, uv_pred)
     radius = th * scales[last_octave.long()]
     win = M.window_mask(uv_pred, cur.feat.xy, radius)
     oct_ok = M.octave_mask(last_octave, cur.feat.octave, -1, 1)
@@ -144,7 +128,7 @@ def local_map_match(cam: Camera, scales, Tcw, cur: FrameData, win: LocalWindow,
     """SearchLocalPoints + SearchByProjection(F, vpMapPoints): frustum cull
     the window, project, window-search unmatched keypoints. Returns
     (matches [M] row->cur-col, visible [M], dists [M])."""
-    uv, z = _project(Tcw, cam, win.xyz)
+    uv, z = project_world(cam, Tcw, win.xyz)
     Twc_t = -Tcw[:3, :3].T @ Tcw[:3, 3]
     view = win.xyz - Twc_t
     dist3 = torch.linalg.norm(view, dim=-1)
@@ -152,7 +136,7 @@ def local_map_match(cam: Camera, scales, Tcw, cur: FrameData, win: LocalWindow,
     visible = (
         win.ok
         & (z > 0.1)
-        & _in_img(cam, uv)
+        & in_image(cam, uv)
         & (dist3 > 0.8 * win.dmin)
         & (dist3 < 1.2 * win.dmax)
         & (viewcos > 0.5)
@@ -182,10 +166,10 @@ def line_projection_match(cam: Camera, Tcw, cur_lines, xyz3_w, desc, avg_len,
     projection falls back to a 15 px midpoint window. Plus the loosened
     average-length gate, Hamming NN at TH_HIGH, one row per column.
     Returns (row->cur matches [Q], dists)."""
-    uv_m, z_m = _project(Tcw, cam, xyz3_w[:, 1])
-    uv_s, z_s = _project(Tcw, cam, xyz3_w[:, 0])
-    uv_e, z_e = _project(Tcw, cam, xyz3_w[:, 2])
-    ok = row_ok & (z_m > 0.1) & _in_img(cam, uv_m)
+    uv_m, z_m = project_world(cam, Tcw, xyz3_w[:, 1])
+    uv_s, z_s = project_world(cam, Tcw, xyz3_w[:, 0])
+    uv_e, z_e = project_world(cam, Tcw, xyz3_w[:, 2])
+    ok = row_ok & (z_m > 0.1) & in_image(cam, uv_m)
     d2 = uv_e - uv_s
     L2d = torch.sqrt(torch.sum(d2 * d2, dim=-1))
     dv = d2 / torch.clamp(L2d, min=1e-6)[:, None]

@@ -274,7 +274,7 @@ def test_build_frames_batch_is_per_frame_builds(scene):
     for f, (l, r) in zip(batch, frames[:2]):
         one = TP.build_frame_stereo(torch.from_numpy(l.astype(np.uint8)).float(),
                                     torch.from_numpy(r.astype(np.uint8)).float(),
-                                    sysm.cam, sysm.spec, sysm.scales)
+                                    sysm.cam, sysm.spec, sysm.scales, sysm.line_cap)
         torch.testing.assert_close(f.feat.desc, one.feat.desc, rtol=0, atol=0)
         torch.testing.assert_close(f.depth, one.depth, rtol=0, atol=0)
 

@@ -247,5 +247,5 @@ def _fresh_step(S, sysm, pair):
     from splslam_tpu_torch.slam.pipeline import StepState
 
     f = build_frame_stereo(torch.from_numpy(l).float(), torch.from_numpy(r).float(),
-                           sysm.cam, sysm.spec, sysm.scales)
+                           sysm.cam, sysm.spec, sysm.scales, line_capacity=1)
     return StepState.fresh(f, torch.from_numpy(sysm.last_Tcw_np))

@@ -192,17 +192,34 @@ def test_sparse_bow_table_scores_match_dense():
                                want, rtol=1e-6, atol=1e-7)
 
 
-def test_vocab_save_load_roundtrip(tmp_path):
-    """A vocabulary saved by the JAX package loads into the port and sends
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_vocab_save_load_roundtrip(tmp_path, writer):
+    """A vocabulary saved by either package loads into the other with the
+    same tables, the same file layout (keys and dtypes), and sends
     descriptors to the same words."""
     rng = np.random.default_rng(1)
     desc = rng.integers(0, 2 ** 32, (800, 8), dtype=np.uint32)
     jv = JV.train(desc, k=4, depth=2, seed=0)
+    tv = TV.train(desc, k=4, depth=2, seed=0, device="cpu")
     p = str(tmp_path / "voc.npz")
-    JV.save(jv, p)
-    tv = TV.load(p, "cpu")
-    w1 = JV.transform_words(jv, jnp.asarray(desc[:100]), jnp.ones(100, bool))
-    w2 = TV.transform_words(tv, _t(desc[:100]), torch.ones(100, dtype=torch.bool))
+    ref = str(tmp_path / "ref.npz")
+    JV.save(jv, ref)
+    if writer == "jax":
+        JV.save(jv, p)
+        jv2, tv2 = jv, TV.load(p, "cpu")
+    else:
+        TV.save(tv, p)
+        jv2, tv2 = JV.load(p), tv
+    with np.load(p) as got, np.load(ref) as want:
+        assert sorted(got.files) == sorted(want.files)
+        for key in want.files:
+            assert got[key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for tl, jl in zip(tv2.level_desc, jv2.level_desc):
+        np.testing.assert_array_equal(tl.numpy().view(np.uint32), np.asarray(jl))
+    np.testing.assert_array_equal(tv2.weights.numpy(), np.asarray(jv2.weights))
+    w1 = JV.transform_words(jv2, jnp.asarray(desc[:100]), jnp.ones(100, bool))
+    w2 = TV.transform_words(tv2, _t(desc[:100]), torch.ones(100, dtype=torch.bool))
     np.testing.assert_array_equal(w2.numpy(), np.asarray(w1))
 
 

@@ -214,8 +214,10 @@ def test_kitti_loaders_match_jax(tmp_path):
     assert len(TD.load_kitti_mono(seq)[0]) == 7
 
 
+@pytest.mark.parametrize("ts_file", [None, "MH01.txt"])
 @pytest.mark.parametrize("stereo", [True, False])
-def test_euroc_loader_matches_jax(tmp_path, stereo):
+def test_euroc_loader_matches_jax(tmp_path, stereo, ts_file):
+    """`ts_file` is taken and ignored by both loaders."""
     cam0 = tmp_path / "mav0" / "cam0"
     (cam0 / "data").mkdir(parents=True)
     if stereo:
@@ -225,8 +227,8 @@ def test_euroc_loader_matches_jax(tmp_path, stereo):
         for i in range(5)] + [""]
     (cam0 / "data.csv").write_text("\n".join(rows))
     seq = str(tmp_path)
-    got = TD.load_euroc(seq)
-    assert got == JD.load_euroc(seq)
+    got = TD.load_euroc(seq, ts_file)
+    assert got == JD.load_euroc(seq, ts_file) == TD.load_euroc(seq)
     assert len(got[2]) == 5 and (got[1] is not None) == stereo
 
 

@@ -25,7 +25,16 @@ NCCL against world 1 on the CPU, and 4 gloo ranks sharing the card
 against world 1 (poses 1e-4, point landmarks 5e-4, line endpoints 5e-4
 off the other run's line: tests/test_torch_parallel.py's tolerance), and
 a KITTI folder read by the native prefetcher into `track_stereo` on the
-card against the same arrays from memory (poses within 1e-5 m).
+card against the same arrays from memory (poses within 1e-5 m). Then
+`graft_entry.entry` card against CPU, and the JAX package's four proof
+suites, which it marks `slow`, at their full size with their gates
+unchanged: tests/test_e2e_robustness.py (a moving object; a map of 100
+keyframes corrected by `_correct`), tests/test_bow_retrieval.py (360
+places; a tracked 300-keyframe map), tests/test_e2e_parity_matrix.py
+(3 seeds x 2 profiles; each tour cell also within
+`chip_smoke.TOUR_TOL_PP` of the JAX package's recorded value) and
+tests/test_line_repeatability.py. Their cases live in chip_smoke.py,
+whose phase 16 runs one of each.
 Every test skips on a host without a card.
 
 This file imports no JAX (a GPU host need not have it, and
@@ -1006,7 +1015,7 @@ def test_build_frame_rgbd_runs_the_kernel_once(cuda, rgbd_state):
     from splslam_tpu_torch.slam.frame import build_frame_rgbd
 
     sysm, (img, depth) = rgbd_state
-    args = (sysm.cam, sysm.spec, sysm.settings.depth_map_factor)
+    args = (sysm.cam, sysm.spec, sysm.settings.depth_map_factor, sysm.line_cap)
     fc = build_frame_rgbd(torch.from_numpy(img).float(), torch.from_numpy(depth), *args)
     before = OK.orb_describe.launches
     fg = build_frame_rgbd(torch.from_numpy(img).to(cuda).float(),
@@ -1296,3 +1305,67 @@ def test_prefetch_loader_track_stereo_gpu_matches_in_memory(cuda, tmp_path):
     assert loaded.get_tracking_state() == memory.get_tracking_state()
     a, b = loaded.poses(), memory.poses()
     assert np.linalg.norm(a[:, :3, 3] - b[:, :3, 3], axis=-1).max() <= 1e-5
+
+
+# ---- the JAX package's proof suites on the card (chip_smoke's cases) ----
+# tests/test_e2e_robustness.py, tests/test_bow_retrieval.py,
+# tests/test_e2e_parity_matrix.py and tests/test_line_repeatability.py, each
+# at its full size with its gates unchanged; the tour cells are held to the
+# JAX package's recorded value as well (chip_smoke.TOUR_JAX_PCT).
+
+
+def _passes(case, *args):
+    import chip_smoke
+
+    gates, _ = case(*args)
+    assert not chip_smoke.failed_gates(case.__name__, gates), gates
+
+
+def test_dynamic_object_does_not_break_tracking(cuda):
+    import chip_smoke
+
+    _passes(chip_smoke.dynamic_object_case, cuda)
+
+
+def test_hundreds_of_keyframes_map(cuda):
+    import chip_smoke
+
+    _passes(chip_smoke.hundreds_of_keyframes_case, cuda)
+
+
+def test_top1_retrieval_precision_at_map_scale(cuda):
+    import chip_smoke
+
+    _passes(chip_smoke.place_retrieval_case, cuda)
+
+
+def test_retrieval_on_tracked_300kf_map(cuda):
+    import chip_smoke
+
+    _passes(chip_smoke.tracked_map_retrieval_case, cuda)
+
+
+@pytest.mark.parametrize("seed", [5, 7, 9])
+def test_matrix_tour_planes(cuda, seed):
+    import chip_smoke
+
+    _passes(chip_smoke.matrix_cell_case, cuda, "tour", seed)
+
+
+@pytest.mark.parametrize("seed", [5, 7, 9])
+def test_matrix_forward_corridor(cuda, seed):
+    import chip_smoke
+
+    _passes(chip_smoke.matrix_cell_case, cuda, "corridor", seed)
+
+
+def test_line_repeatability_floors(cuda):
+    import chip_smoke
+
+    _passes(chip_smoke.line_repeatability_case, cuda)
+
+
+def test_entry_gpu_matches_cpu(cuda):
+    import chip_smoke
+
+    _passes(chip_smoke.entry_case, cuda)

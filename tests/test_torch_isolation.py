@@ -1,8 +1,10 @@
-"""The PyTorch port stands without JAX: importing it (and chip_smoke.py)
-loads no jax module, nor PyYAML or OpenCV (the YAML and image loaders
-and the viewer import them where they read or draw), its sources, chip_smoke.py and the
-card's test file import nothing of the JAX package, and chip_smoke.py fails — printing no
-result — on a host without a CUDA device (there is no CPU fallback).
+"""The PyTorch port stands without JAX: importing it (and chip_smoke.py
+and the port's scripts, `scripts/port_*.py`) loads no jax module, nor
+PyYAML or OpenCV (the YAML and image loaders and the viewer import them
+where they read or draw), its sources, chip_smoke.py, the port's scripts
+and the card's test file import nothing of the JAX package, and
+chip_smoke.py fails — printing no result — on a host without a CUDA
+device (there is no CPU fallback).
 
 The port reads the bundled BoW vocabularies, `.npz` files in the JAX
 package's `assets/` folder, by file path as data
@@ -20,6 +22,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "splslam_tpu_torch"
+SCRIPTS = sorted((ROOT / "scripts").glob("port_*.py"))
 
 
 def _run(code_or_args, timeout=300):
@@ -34,10 +37,16 @@ def test_importing_the_port_loads_no_jax():
         "splslam_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
+    scripts = [str(p) for p in SCRIPTS]
+    assert {"port_train_vocab.py", "port_gba_scaling.py"} <= {p.name for p in SCRIPTS}
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'splslam_tpu' or m.startswith('splslam_tpu.')\n"
         "       or m.split('.')[0] in ('yaml', 'cv2')]\n"
@@ -52,7 +61,7 @@ def test_importing_the_port_loads_no_jax():
 def test_port_sources_import_no_jax_module():
     allowed = set()
     pat = re.compile(r"^\s*(?:import|from)\s+(jax\b|splslam_tpu\.[\w.]+)", re.M)
-    files = (list(PORT.rglob("*.py"))
+    files = (list(PORT.rglob("*.py")) + SCRIPTS
              + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"])
     assert len(files) > 15
     # the relocalization and loop-detection slice is among the scanned files
@@ -74,6 +83,8 @@ def test_port_sources_import_no_jax_module():
             "splslam_tpu_torch/parallel/mesh.py",
             "splslam_tpu_torch/parallel/gba_sharded.py",
             "splslam_tpu_torch/graft_entry.py"} <= names
+    # the twins of the JAX package's scripts
+    assert {"scripts/port_train_vocab.py", "scripts/port_gba_scaling.py"} <= names
     for p in files:
         for m in pat.findall(p.read_text()):
             assert m in allowed, f"{p.relative_to(ROOT)} imports {m}"

@@ -272,7 +272,8 @@ def test_vo_frame_step_rgbd_matches_jax(scene, jax_run, monkeypatch):
         tmap, tstep, tstats = TP.vo_frame_step_rgbd(
             torch.from_numpy(img), torch.from_numpy(depth), tmap, tstep,
             js.th_depth_m, ref_kf, tcam, PyramidSpec.create(H, W, 4, 1.2, 600),
-            torch.from_numpy(scales), m_local=1024, scale_factor=1.2, n_levels=4)
+            torch.from_numpy(scales), m_local=1024, scale_factor=1.2, n_levels=4,
+            line_capacity=1)
         jstats = np.asarray(jstats)
         np.testing.assert_array_equal(tstats.numpy()[16:], jstats[16:])
         np.testing.assert_allclose(tstats.numpy()[:16], jstats[:16], atol=1e-4)

@@ -204,7 +204,7 @@ def test_vo_frame_step(ref):
         convert.step_state_from_numpy(ref.step, "cpu"), args[0], args[1],
         ref.tcam, TP.PyramidSpec.create(H, W, 4, 1.2, 600),
         torch.from_numpy(ref.scales), m_local=M_LOCAL, scale_factor=1.2,
-        n_levels=4)
+        n_levels=4, line_capacity=1)
     jstats = np.asarray(jstats)
     np.testing.assert_array_equal(tstats.numpy()[16:], jstats[16:])
     np.testing.assert_allclose(tstats.numpy()[:16], jstats[:16], atol=1e-4)
@@ -270,7 +270,7 @@ def test_vo_frame_step_localization_mode(ref):
             torch.from_numpy(ref.imgs), fresh_map(ref),
             convert.step_state_from_numpy(ref.step, "cpu"), args[0], args[1],
             ref.tcam, spec, torch.from_numpy(ref.scales), m_local=M_LOCAL,
-            scale_factor=1.2, n_levels=4, **kw)
+            scale_factor=1.2, n_levels=4, line_capacity=1, **kw)
 
     _, ts, tstats = port_step(loc_mode=True)
     jstats = np.asarray(jstats)

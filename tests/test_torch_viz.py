@@ -102,6 +102,27 @@ def test_plot_map_writes_a_figure(six, tmp_path):
         sysm.poses_reconstructed(), atol=1e-6)
 
 
+def test_plot_map_leaves_the_pending_stats_queued(tmp_path):
+    """A direct `plot_map` call does not drain (by design, unlike the JAX
+    package's, whose `poses_reconstructed` drains): the frame stats still
+    in flight stay queued, with the trajectory and keyframes they would
+    decide, until the tracker's own `drain` consumes them."""
+    K, bf, frames, _ = make_stereo_sequence(n_frames=3, motion="forward",
+                                            width=320, height=240)
+    sysm = System(_settings(K, bf), Sensor.STEREO, "cpu")
+    for i, (l, r) in enumerate(frames):
+        sysm.track_stereo(l, r, i * 0.1)
+    n_pending, n_traj, n_kfs = len(sysm._pending), len(sysm.trajectory), sysm.n_kfs
+    assert n_pending >= 1
+    plot_map(sysm, str(tmp_path / "map.png"))
+    assert os.path.getsize(tmp_path / "map.png") > 5000
+    assert len(sysm._pending) == n_pending
+    assert (len(sysm.trajectory), sysm.n_kfs) == (n_traj, n_kfs)
+    sysm.drain()
+    assert len(sysm._pending) == 0
+    assert len(sysm.trajectory) == n_traj + n_pending == len(frames)
+
+
 def test_live_viewer_loop(tmp_path):
     """The live Viewer thread (reference src/Viewer.cc Run loop +
     RequestStop/Release/RequestFinish handshake): renders overlay PNGs at
