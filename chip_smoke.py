@@ -90,10 +90,11 @@ Phases, each fatal on failure:
      `extract_lines`. Holds one B = 1 `orb_describe` launch on a frame of
      the sequence against its plain version (timed as in phase 3), and
      `extract_lines` on the card against the CPU (validity and octaves
-     equal). Then the same sequence points only (bench_mono.py's
-     ablation: its state and lost frames), and the low-texture two-view
-     init trials of bench_components.py (10 seeds, with and without
-     lines), whose success counts print beside the JAX package's record
+     equal). Then the sequence's first 36 frames points only
+     (bench_mono.py's ablation: its state and lost frames), and the
+     low-texture two-view init trials of bench_components.py (4 of its 10
+     seeds, with and without lines; the bench runs all of both), whose
+     success counts print beside the JAX package's record
      (BENCH_HEADLINES.json: 10/10 with lines, 0/10 without);
  10. point+line SLAM with the back end on: phase 9's 72 frames at the same
      configuration with the JAX package's defaults (local mapping with
@@ -142,7 +143,9 @@ Phases, each fatal on failure:
      `vo_frame_step_rgbd` on the card against the CPU from identical
      copies of the final state (integers equal), with its synced ms,
      device activities and idle share;
- 12. batched stereo at bench.py:45-65's configuration (phase 4's, with
+ 12. batched stereo at bench.py:45-65's configuration
+     (`bench/stereo.py::settings`, which phases 4-6 cut to one frame a
+     call): phase 4's, with
      relocalization and loop detection on as bench.py keeps them,
      `min_kf_gap=64`, `batch_defer_stats` at depth 3): frame 0 through
      `track_stereo`, then two batches of 32 of bench.py's forward leg
@@ -160,6 +163,7 @@ Phases, each fatal on failure:
      that takes the newer batch with it, OK within 0.08 m; one launch a
      frame built;
  13. batched mono point+line at bench_mono.py:80-128's configuration
+     (`bench/mono.py::settings`; phases 9 and 10 cut it to one frame a call)
      (phase 9's 72 frames and settings with bench_mono.py's relocalization
      and loop detection on, B = 8, stats deferred at depth 3):
      `track_mono` one frame at a time until the two-view init, then
@@ -170,7 +174,8 @@ Phases, each fatal on failure:
      mapping off this map keeps the init's few lines, and that median is
      0), one B = 1 launch a frame built; ms/frame a batch and with the
      drain;
- 14. bench_mapping.py's synthetic map (`io/synth_map.py`, 12 keyframes of
+ 14. bench_mapping.py's synthetic map (`bench/mapping.py::map_kwargs`,
+     `io/synth_map.py`, 12 keyframes of
      2000 features at 1241x376) built on the card; one `mapping_step` on
      each of 3 copies after a warm-up (synced ms, median), one under the
      profiler (device
@@ -215,13 +220,22 @@ Phases, each fatal on failure:
      dynamic object (60 corridor frames clean and with a moving patch:
      OK, ATE within 2% of the path and within 1% of the clean run's, no
      BA revert, at most 2 guarded iterations), tests/test_bow_retrieval.py's
-     360 places (no far retrieval, top-1 within 2 places >= 0.95 and
-     within 1 >= 0.70, median own/far score > 1.1),
-     tests/test_e2e_parity_matrix.py's tour cell of seed 5 (300 frames
-     with mapping: OK, ATE within 1.25% of the path and within
-     TOUR_TOL_PP of the JAX package's recorded value) and
+     places, 120 of its 360 (no far retrieval, top-1 within 2 places >=
+     0.95 and within 1 >= 0.70, median own/far score > 1.1),
+     tests/test_e2e_parity_matrix.py's corridor cell of seed 5 (220
+     frames with mapping: OK, ATE within 1% of the path; the GPU tests run
+     the tour cells, held to the JAX package's values, and the rest) and
      tests/test_line_repeatability.py's floors (matcher re-association
      0.50 / 0.57, geometric repeatability 0.62).
+ 17. the port's bench (`splslam_tpu_torch/bench/`, `bench_torch.py`) in
+     process at a short size (`bench_short_sizes`: full widths, short
+     sequences, one repeat): the stereo rows over 16 batched, 8 per-frame
+     and 17 mapping frames of a 16-frame leg, the mapping bench's eleven
+     rows with 1 call each, 12 mono frames with and without lines, 1
+     low-texture init trial and 2 relocalization problems. Every row must be ok (its own
+     checks: state, ATE, frames lost, replays, guards, one kernel launch
+     a frame built) and name this card (nvidia-smi's name and power
+     limit); the phase's launches count into the kernel line.
 
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -314,17 +328,16 @@ def device_kernels(fn):
 
 
 def kitti_settings(Settings, K, bf):
-    """The benchmark configuration (`bench.py:45-65`) cut to the smoke
-    run: local mapping, relocalization and loop closing off (phases 5 and
-    6 turn them on)."""
-    return Settings(
-        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
-        cy=float(K[1, 2]), bf=float(bf), width=KITTI_W, height=KITTI_H,
-        n_features=2000, n_levels=8, th_depth=35.0, fps=10.0,
-        max_points=65536, max_keyframes=256, local_window=2048,
-        enable_local_mapping=False, enable_relocalization=False,
-        enable_loop_closing=False,
-    )
+    """The benchmark configuration (`bench.py:45-65`, the port's
+    `bench/stereo.py::settings`) cut to the smoke run: relocalization and
+    loop closing off (phases 5 and 6 turn them on), no minimum keyframe
+    gap, one frame a call. (`Settings`, the class, is the scripts'
+    `scripts/port_*.py` calling convention.)"""
+    from splslam_tpu_torch.bench import stereo as SB
+
+    return dataclasses.replace(
+        SB.settings(K, bf), enable_relocalization=False, enable_loop_closing=False,
+        min_kf_gap=1, batch_defer_stats=False, batch_defer_depth=1)
 
 
 def kernel_bound(levels, xy, spec, OK):
@@ -504,6 +517,7 @@ def main() -> None:
     sharded_gba_phase(card)
     slice_launches += fleet_phase(card)
     proof_launches = proof_phase(card)
+    bench_launches = bench_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "orb_describe",
@@ -513,7 +527,7 @@ def main() -> None:
         "launches": (launches + map_launches + reloc_launches + loop_launches
                      + live_launches + mono_launches + backend_launches
                      + rgbd_launches + batch_launches + mono_batch_launches
-                     + slice_launches + proof_launches),
+                     + slice_launches + proof_launches + bench_launches),
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1037,8 +1051,11 @@ def correction_phase(base, scene, card, device="cuda"):
     return launches
 
 
-MONO_W, MONO_H = 640, 480
+MONO_W, MONO_H = 640, 480   # bench/mono.py's FULL
 MONO_FRAMES = 72   # bench_mono.py runs 120
+# phase 9's cuts of what the bench (phase 17, bench_torch.py) runs in full
+ABLATION_FRAMES = 36
+LOW_TEXTURE_SEEDS = 4
 # Guarded BA iterations a line mapping step: the JAX package's count on
 # tests/test_torch_mono_lines.py's run (36 in 3 steps), plus the slack a
 # step that the test holds the port's count to (GUARD_SLACK there).
@@ -1046,16 +1063,15 @@ LINE_GUARD_GATE = 36 // 3 + 3
 
 
 def mono_settings(Settings, K, using_line: bool):
-    """bench_mono.py's configuration (bench_mono.py:55-92), tracking only
-    (phase 13 turns relocalization, loop detection and batching on)."""
-    return Settings(
-        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
-        cy=float(K[1, 2]), bf=0.0, width=MONO_W, height=MONO_H,
-        n_features=1000, n_levels=8, fps=30.0, max_points=16384,
-        max_keyframes=128, local_window=2048, using_line=using_line,
-        line_features=128, min_kf_gap=20, enable_local_mapping=False,
-        enable_relocalization=False, enable_loop_closing=False,
-    )
+    """bench_mono.py's configuration (bench_mono.py:55-92, the port's
+    `bench/mono.py::settings`), tracking only, one frame a call (phase 13
+    takes the bench's settings as they are; `Settings` as in
+    `kitti_settings`)."""
+    from splslam_tpu_torch.bench import mono as MB
+
+    return dataclasses.replace(
+        MB.settings(K, using_line), enable_relocalization=False,
+        enable_loop_closing=False, batch_defer_stats=False, batch_defer_depth=1)
 
 
 def _mono_run(sysm, frames, device):
@@ -1088,38 +1104,29 @@ def _mono_run(sysm, frames, device):
 
 
 def _low_texture_trials(card, device, n_trials: int = 10):
-    """bench_components.py's mono init trials (bench_components.py:45-118):
-    a low-contrast texture crossed by dark grid strokes, 14 frames of
-    lateral motion; success = state OK within the 14 frames."""
+    """bench_components.py's mono init trials (bench_components.py:45-118,
+    the port's `bench/components.py`): a low-contrast texture crossed by
+    dark grid strokes, 14 frames of lateral motion; success = state OK
+    within the 14 frames. Relocalization and loop detection off."""
     import numpy as np
 
-    from splslam_tpu_torch.io.synthetic import PlaneScene, make_texture
-    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+    from splslam_tpu_torch.bench import components as CB
+    from splslam_tpu_torch.io.synthetic import PlaneScene
+    from splslam_tpu_torch.slam.system import Sensor, System, TrackingState
 
-    W, H = 320, 240
+    W, H = CB.W, CB.H
     K = np.array([[200.0, 0, W / 2], [0, 200.0, H / 2], [0, 0, 1]], np.float32)
-
-    def texture(seed):
-        t = make_texture(seed=seed, size=2048)
-        t = 128.0 + (t - 128.0) * 0.12
-        for i in range(0, 2048, 96):
-            t[i:i + 7, :] = 30.0
-            t[:, i:i + 7] = 30.0
-        return t.astype(np.float32)
 
     out = {}
     t0 = time.perf_counter()
     for using_line in (True, False):
         ok, pts, lns = 0, 0, 0
         for seed in range(100, 100 + n_trials):
-            scene = PlaneScene(texture(seed), z0=3.0, z1=None, px_per_unit=60.0)
+            scene = PlaneScene(CB._low_texture_grid(seed), z0=3.0, z1=None,
+                               px_per_unit=60.0)
             phase = np.random.default_rng(seed).uniform(0, 3.0)
-            st = Settings(
-                fx=200.0, fy=200.0, cx=W / 2, cy=H / 2, bf=0.0, width=W, height=H,
-                n_features=500, n_levels=4, fps=10, max_points=8192,
-                max_keyframes=32, local_window=512, enable_local_mapping=False,
-                enable_relocalization=False, enable_loop_closing=False,
-                using_line=using_line, line_features=64)
+            st = dataclasses.replace(CB.init_settings(using_line),
+                                     enable_relocalization=False, enable_loop_closing=False)
             sysm = System(st, Sensor.MONOCULAR, device)
             for i in range(14):
                 Twc = np.eye(4)
@@ -1231,18 +1238,19 @@ def mono_phase(card, device="cuda"):
           f"equal {ints_equal}, endpoint max abs err {seg_err:.3e} px, bits agree "
           f"{bit_agreement(fg.desc.cpu()[v], fc.desc[v]) if ints_equal else float('nan'):.5f}")
 
-    # bench_mono.py's ablation: the same sequence points only
+    # bench_mono.py's ablation, the sequence's first ABLATION_FRAMES points
+    # only (the bench runs it in full: its points-only row)
     abl = System(mono_settings(Settings, K, False), Sensor.MONOCULAR, device)
-    abl_times, _ = _mono_run(abl, frames, device)
+    abl_times, _ = _mono_run(abl, frames[:ABLATION_FRAMES], device)
     abl_state = abl.get_tracking_state()
     abl_lost = sum(e.lost for e in abl.trajectory)
     abl_init = int(round(abl.trajectory[1].ts * 30.0)) if len(abl.trajectory) > 1 else -1
     print(f"mono points only: state {abl_state.name}, lost {abl_lost}, init at frame "
           f"{abl_init}, keyframes {abl.n_kfs}, median "
           f"{np.median(abl_times[abl_init + 10:]):.2f} ms/frame over frames "
-          f"{abl_init + 10}-{len(frames) - 1}, on {card}")
+          f"{abl_init + 10}-{ABLATION_FRAMES - 1}, on {card}")
 
-    lt_lines, lt_points = _low_texture_trials(card, device)
+    lt_lines, lt_points = _low_texture_trials(card, device, LOW_TEXTURE_SEEDS)
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     checks = {
         "state OK": state == TrackingState.OK,
@@ -1689,32 +1697,23 @@ def rgbd_phase(card, device="cuda"):
     return launches
 
 
-BATCH = 32                     # bench.py:85
-BATCH_DEPTH = 3                # bench.py:63
+BATCH = 32                     # bench.py:85, bench/stereo.py's FULL.batch
 BATCH_FRAMES = 1 + 2 * BATCH   # the bootstrap frame, then two batches
 BATCH_POSE_GAP = 1e-3          # m, batched against per-frame on the card
 KIDNAP_GATE = 0.08             # tests/test_reloc.py
 
 
 def batch_settings(st):
-    """bench.py:45-65: phase 4's configuration with bench.py's
-    relocalization and loop detection (the defaults), a 64-frame minimum
-    keyframe gap, and each batch's stats read three batches late."""
-    return dataclasses.replace(st, enable_relocalization=True,
-                               enable_loop_closing=True, min_kf_gap=64,
-                               batch_defer_stats=True, batch_defer_depth=BATCH_DEPTH)
+    """bench.py:45-65 (the port's `bench/stereo.py::settings`) at phase
+    4's camera: relocalization and loop detection on (the defaults), a
+    64-frame minimum keyframe gap, and each batch's stats read three
+    batches late."""
+    import numpy as np
 
+    from splslam_tpu_torch.bench import stereo as SB
 
-def _counted_replays(sysm):
-    sysm.replays = 0
-    replay = sysm._recover_batch_suffix
-
-    def counted(*args):
-        sysm.replays += 1
-        return replay(*args)
-
-    sysm._recover_batch_suffix = counted
-    return sysm
+    K = np.array([[st.fx, 0, st.cx], [0, st.fy, st.cy], [0, 0, 1]], np.float32)
+    return SB.settings(K, st.bf)
 
 
 def batch_phase(st, leg, leg_gt, card, frame_ms, device="cuda"):
@@ -1723,6 +1722,7 @@ def batch_phase(st, leg, leg_gt, card, frame_ms, device="cuda"):
     import numpy as np
     import torch
 
+    from splslam_tpu_torch.bench.common import watched
     from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence, path_length
     from splslam_tpu_torch.ops import orb_kernel as OK
     from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
@@ -1787,7 +1787,7 @@ def batch_phase(st, leg, leg_gt, card, frame_ms, device="cuda"):
         "mid-batch": ([(blank, blank)] + frames[6:9], frames[9:13], 1, 12),
         "lost with the next in flight": ([(blank, blank)] * 4, frames[6:10], 2, 9),
     }.items():
-        ks = _counted_replays(System(dataclasses.replace(kst, batch_defer_depth=depth),
+        ks = watched(System(dataclasses.replace(kst, batch_defer_depth=depth),
                                      Sensor.STEREO, device))
         for i, (l, r) in enumerate(frames[:6]):
             ks.track_stereo(l, r, i * 0.1)
@@ -1831,18 +1831,9 @@ def batch_phase(st, leg, leg_gt, card, frame_ms, device="cuda"):
     return launches + k_launches
 
 
-MONO_B = 8            # bench_mono.py:108
+MONO_B = 8            # bench_mono.py:108, bench/mono.py's FULL.batch
 
 
-def _staged(images, device):
-    """uint8 images on `device`, copied from pinned memory on a GPU."""
-    import numpy as np
-    import torch
-
-    t = torch.from_numpy(np.ascontiguousarray(images.astype(np.uint8)))
-    if torch.device(device).type == "cuda":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
 MONO_ATE_GATE = 0.15  # Sim3-aligned; tests/test_torch_mono.py (tests/test_e2e_mono.py)
 
 
@@ -1852,20 +1843,20 @@ def mono_batch_phase(card, phase9_ln_in, device="cuda"):
     import numpy as np
     import torch
 
+    from splslam_tpu_torch.bench import mono as MB
+    from splslam_tpu_torch.bench.common import watched
     from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence
     from splslam_tpu_torch.ops import orb_kernel as OK
     from splslam_tpu_torch.slam import pipeline
-    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+    from splslam_tpu_torch.slam.system import Sensor, System, TrackingState
 
     t_phase = time.perf_counter()
     K, _, frames, gt = make_stereo_sequence(
         n_frames=MONO_FRAMES, width=MONO_W, height=MONO_H, fx=520.0, motion="oscillate",
         seed=4, osc_amp=0.5, texture="grid")
     # bench_mono.py:100-107 keeps relocalization and loop detection on
-    st = dataclasses.replace(mono_settings(Settings, K, True),
-                             enable_relocalization=True, enable_loop_closing=True,
-                             batch_defer_stats=True, batch_defer_depth=BATCH_DEPTH)
-    sysm = _counted_replays(System(st, Sensor.MONOCULAR, device))
+    st = MB.settings(K, True)
+    sysm = watched(System(st, Sensor.MONOCULAR, device))
     rows = []
     consume = sysm._consume_batch_stats
 
@@ -1882,7 +1873,7 @@ def mono_batch_phase(card, phase9_ln_in, device="cuda"):
         i += 1
     init_end = i
     starts = list(range(init_end, len(frames), MONO_B))
-    staged = [_staged(np.stack([l for l, _ in frames[s:s + MONO_B]]), device)
+    staged = [MB.staged([l for l, _ in frames[s:s + MONO_B]], torch.device(device))
               for s in starts]
     sysm.drain()
     _sync(device)
@@ -1905,7 +1896,7 @@ def mono_batch_phase(card, phase9_ln_in, device="cuda"):
     max_ln = float(ln_in.max()) if len(ln_in) else 0.0
     print(f"batched mono+lines: {len(frames)} frames of {MONO_W}x{MONO_H}, init at frame "
           f"{init_end - 1} one frame at a time, then {len(starts)} batches of <= "
-          f"{MONO_B} (depth {BATCH_DEPTH}); state {state.name}, lost {n_lost}, replays "
+          f"{MONO_B} (depth {st.batch_defer_depth}); state {state.name}, lost {n_lost}, replays "
           f"{sysm.replays}, keyframes {sysm.n_kfs}, map lines "
           f"{int(sysm.map.lns.valid.sum())}, line inliers per batched frame median "
           f"{med_ln} (max {max_ln}; phase 9's per-frame median {phase9_ln_in}), "
@@ -1940,17 +1931,16 @@ def synth_map_phase(card, device="cuda"):
     import numpy as np
     import torch
 
-    from splslam_tpu_torch.geometry.camera import Camera
+    from splslam_tpu_torch.bench import mapping as MP
     from splslam_tpu_torch.io.synth_map import make_synthetic_map
     from splslam_tpu_torch.slam import mapping_ops as MO
 
     t_phase = time.perf_counter()
-    kw = dict(n_kfs=12, n_feat=2000, width=KITTI_W, height=KITTI_H, fx=718.0,
-              baseline=0.54)      # bench_mapping.py:57-60
-    cam = Camera.create(718.0, 718.0, KITTI_W / 2.0, KITTI_H / 2.0, bf=718.0 * 0.54,
-                        width=KITTI_W, height=KITTI_H)
-    scales = torch.tensor([1.2 ** i for i in range(8)], dtype=torch.float32)
+    kw = MP.map_kwargs()      # bench_mapping.py:57-60
+    cam = MP.camera()
+    scales = torch.tensor([1.2 ** i for i in range(kw["n_levels"])], dtype=torch.float32)
     kf = kw["n_kfs"] - 1
+    kb = MP.k_bucket(kw["n_kfs"], kw["k_cap"])
     t0 = time.perf_counter()
     base, _, _, _ = make_synthetic_map(**kw, device=device)
     _sync(device)
@@ -1958,7 +1948,7 @@ def synth_map_phase(card, device="cuda"):
     base_cpu, _, _, _ = make_synthetic_map(**kw, device="cpu")
 
     def step(m, dev):
-        return MO.mapping_step(m, kf, cam, scales.to(dev), k_bucket=32)
+        return MO.mapping_step(m, kf, cam, scales.to(dev), k_bucket=kb)
 
     def outcome(m, stats):
         stats = stats.cpu()
@@ -2328,7 +2318,8 @@ ENTRY_TCW_ATOL = 1e-5         # tests/test_torch_entry.py
 # the gate.
 TOUR_JAX_PCT = {5: 0.5074735005035138, 7: 1.018809304200117, 9: 1.039589814319185}
 TOUR_TOL_PP = 0.25
-PHASE16_MATRIX_SEED = 5      # the cell phase 16 runs; the GPU tests run all six
+PHASE16_MATRIX_SEED = 5      # phase 16's corridor cell; the GPU tests run all six
+PHASE16_PLACES = 120         # of the suite's 360, which the GPU tests run
 
 
 def failed_gates(title, gates):
@@ -2779,19 +2770,19 @@ def line_repeatability_case(device):
 def proof_phase(card, device="cuda"):
     """Phase 16: `entry()` with its 8-slot line table on the card against
     the CPU, then one case of each proof suite the port holds to the JAX
-    package's gates: the dynamic object (robustness), the 360-place
-    retrieval, the tour cell of seed PHASE16_MATRIX_SEED (the parity
-    matrix) and the line repeatability floors. Each gate prints beside its
-    value; the kernel launches of the phase (one a frame built) are
-    counted from 0 and returned."""
+    package's gates: the dynamic object (robustness), the place
+    retrieval over PHASE16_PLACES places, the corridor cell of seed
+    PHASE16_MATRIX_SEED (the parity matrix) and the line repeatability
+    floors. Each gate prints beside its value; the kernel launches of the
+    phase (one a frame built) are counted from 0 and returned."""
     from splslam_tpu_torch.ops import orb_kernel as OK
 
     t_phase = time.perf_counter()
     cases = [("entry", lambda: entry_case(device)),
              ("dynamic object", lambda: dynamic_object_case(device)),
-             ("place retrieval", lambda: place_retrieval_case(device)),
-             (f"matrix tour seed {PHASE16_MATRIX_SEED}",
-              lambda: matrix_cell_case(device, "tour", PHASE16_MATRIX_SEED)),
+             ("place retrieval", lambda: place_retrieval_case(device, PHASE16_PLACES)),
+             (f"matrix corridor seed {PHASE16_MATRIX_SEED}",
+              lambda: matrix_cell_case(device, "corridor", PHASE16_MATRIX_SEED)),
              ("line repeatability", lambda: line_repeatability_case(device))]
     total, bad = 0, []
     for title, run in cases:
@@ -2807,6 +2798,67 @@ def proof_phase(card, device="cuda"):
     if bad:
         raise SystemExit(f"chip_smoke: phase 16 failed: {bad}")
     return total
+
+
+def bench_short_sizes():
+    """The four benches cut to phase 17's short run on the card (full
+    widths, short sequences, one repeat)."""
+    from splslam_tpu_torch.bench import components, mapping, mono, stereo
+
+    return {
+        stereo: dataclasses.replace(
+            stereo.FULL, leg=16, n_frames=16, batch=8, warmup=8, per_frame=8,
+            per_frame_skip=4, realistic_frames=17, realistic_warmup=0,
+            realistic_trace_batches=1, trace_frames=1),
+        mapping: dataclasses.replace(mapping.FULL, calls=1),
+        mono: dataclasses.replace(mono.FULL, n_frames=12, warmup_frames=0),
+        components: dataclasses.replace(components.FULL, trials=1, reloc_trials=2,
+                                        latency_reps=5, warmup_frames=0),
+    }
+
+
+def bench_phase(card, device="cuda", sizes=None):
+    """Phase 17: the port's bench (`bench_torch.py`'s four benches) in
+    process at a short size, one repeat each: every row ok, and every row
+    names this card. Returns the kernel launches of the phase, counted
+    from 0."""
+    import torch
+
+    from splslam_tpu_torch.bench import common
+    from splslam_tpu_torch.ops import orb_kernel as OK
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    info = common.device_info(dev)
+    OK.orb_describe.launches = 0
+    rows = []
+    for mod, size in (sizes or bench_short_sizes()).items():
+        name = mod.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        rows += mod.run(common.Bench(name, dev, repeats=1, info=info), size)
+        print(f"bench {name}: {time.perf_counter() - t0:.1f} s on {card}")
+    launches = OK.orb_describe.launches
+    for r in rows:
+        tr = r.get("trace") or {}
+        print(f"  {r['metric']}: {r['value']} {r['unit']}, ok {r['ok']}, median "
+              f"{r.get('median_ms')} ms, p90 {r.get('p90_ms')} ms, n {r.get('n')}, idle "
+              f"share {tr.get('device_idle_share')}"
+              + ("" if r["ok"] else f", checks {r['checks']}"))
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s, {len(rows)} rows, kernel "
+          f"launches {launches}")
+    on_card = (info == "cpu" if dev.type == "cpu" else
+               isinstance(info, dict) and info["nvidia_smi"] == card
+               and info["kind"] == torch.cuda.get_device_name(0))
+    checks = {
+        "every row ok": all(r["ok"] for r in rows),
+        "every row names this device": on_card and all(r["device"] == info for r in rows),
+        "the kernel launched": launches > 0 or dev.type != "cuda",
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: bench phase failed: {failed}: "
+                         f"{[r['metric'] for r in rows if not r['ok']]}")
+    return launches
 
 
 def _line_ints(m):

@@ -1,10 +1,11 @@
-"""The PyTorch port stands without JAX: importing it (and chip_smoke.py
-and the port's scripts, `scripts/port_*.py`) loads no jax module, nor
-PyYAML or OpenCV (the YAML and image loaders and the viewer import them
-where they read or draw), its sources, chip_smoke.py, the port's scripts
-and the card's test file import nothing of the JAX package, and
-chip_smoke.py fails — printing no result — on a host without a CUDA
-device (there is no CPU fallback).
+"""The PyTorch port stands without JAX: importing it (and chip_smoke.py,
+bench_torch.py and the port's scripts, `scripts/port_*.py`) loads no jax
+module, nor PyYAML or OpenCV (the YAML and image loaders and the viewer
+import them where they read or draw), its sources (the benches in
+`splslam_tpu_torch/bench/` among them), chip_smoke.py, bench_torch.py,
+the port's scripts and the card's test file import nothing of the JAX
+package, and chip_smoke.py fails — printing no result — on a host
+without a CUDA device (there is no CPU fallback).
 
 The port reads the bundled BoW vocabularies, `.npz` files in the JAX
 package's `assets/` folder, by file path as data
@@ -42,7 +43,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, importlib.util, sys\n"
         f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'bench_torch']:\n"
         "    importlib.import_module(m)\n"
         f"for i, path in enumerate({scripts!r}):\n"
         "    spec = importlib.util.spec_from_file_location(f'script{i}', path)\n"
@@ -62,7 +63,8 @@ def test_port_sources_import_no_jax_module():
     allowed = set()
     pat = re.compile(r"^\s*(?:import|from)\s+(jax\b|splslam_tpu\.[\w.]+)", re.M)
     files = (list(PORT.rglob("*.py")) + SCRIPTS
-             + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"])
+             + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                ROOT / "tests" / "test_torch_gpu.py"])
     assert len(files) > 15
     # the relocalization and loop-detection slice is among the scanned files
     names = {p.relative_to(ROOT).as_posix() for p in files}
@@ -85,6 +87,11 @@ def test_port_sources_import_no_jax_module():
             "splslam_tpu_torch/graft_entry.py"} <= names
     # the twins of the JAX package's scripts
     assert {"scripts/port_train_vocab.py", "scripts/port_gba_scaling.py"} <= names
+    # the benches and their command
+    assert {"bench_torch.py", "splslam_tpu_torch/bench/common.py",
+            "splslam_tpu_torch/bench/stereo.py", "splslam_tpu_torch/bench/mapping.py",
+            "splslam_tpu_torch/bench/mono.py",
+            "splslam_tpu_torch/bench/components.py"} <= names
     for p in files:
         for m in pat.findall(p.read_text()):
             assert m in allowed, f"{p.relative_to(ROOT)} imports {m}"
