@@ -5,9 +5,10 @@
 Phases, each fatal on failure:
   1. report the card (nvidia-smi name and power limit), torch and CUDA
      versions; turn TF32 off for matmuls and cuDNN;
-  2. build the hand-written kernel from this checkout's sources; print
-     ptxas's registers, shared memory and stack, and the resident blocks
-     per SM this gives;
+  2. build the hand-written kernels (`csrc/orb_describe.cu`,
+     `csrc/segment_sum.cu`) from this checkout's sources, one nvcc each,
+     started together; print ptxas's registers, shared memory and stack,
+     and the ORB kernel's resident blocks per SM;
   3. hold the kernel against its plain PyTorch version at main-path
      shapes (both images of one 1241x376 stereo frame, 8 unblurred
      levels each, 2 x 2000 slots, one launch): angle within 1e-3 rad,
@@ -64,14 +65,21 @@ Phases, each fatal on failure:
      of phase 5 (1241x376, 2000 features, 65,536-point table, keyframe
      bucket 32, 64,000 edge rows) `loop_closer.run_global_ba(rounds=1)`
      must fire no guard, revert nothing and keep ATE within 1.2x; prints
-     its synced ms, device activities and busy share. Offline correction:
+     its synced ms, device activities and busy share. It runs twice from
+     identical copies of the map: every output equal to the bit (a
+     gate). The `segment_sum` kernel is held against its plain version on
+     every table the second solve summed (equal to the bit), and on the
+     CG products' camera sum timed beside its plain version, `index_add_`
+     and its bound. Offline correction:
      drift is injected into a copy of phase 7's circuit map
      (tests/test_loop.py's ramp over the post-loop keyframes and the
      landmarks they own), the loop Sim3 re-measured and `_correct` run:
      ATE more than doubles with the drift and the correction takes it
      below half, no guard fires, the fuse merges landmarks, the loop edge
      is kept; prints the three ATEs and the ms of `pose_graph_sim3`,
-     `loop_search_and_fuse`, `run_global_ba` and `_correct`. Live
+     `loop_search_and_fuse`, `run_global_ba` and `_correct`; the
+     `pose_graph_sim3` of `_correct` runs again from copies of its
+     inputs: every output equal to the bit (a gate). Live
      correction: the circuit again with `enable_loop_correction=True`:
      state OK, at least one correction, no correction-path guard, no BA
      revert, a bounded rate of guarded BA iterations, and ATE against the
@@ -116,7 +124,8 @@ Phases, each fatal on failure:
      mapping step (synced around `on_keyframe`), and one step's device
      kernels and idle share. Then, on the final map: `run_global_ba(
      rounds=1, with_lines=True)` (ms, lines adopted; poses and lines
-     finite); the last line mapping step again on the card and on the
+     finite), twice from identical copies of the map: every output equal
+     to the bit (a gate); the last line mapping step again on the card and on the
      CPU from identical copies (the integer tables after cull,
      triangulate and fuse equal, and those of the whole step); and the
      map saved, loaded into a fresh System and frame 40 relocalized with
@@ -200,8 +209,11 @@ Phases, each fatal on failure:
      points, 1,024 lines, 139,264 edges; 2 rounds of 2 GN steps of 8 CG
      iterations, dryrun_multichip's schedule) at world 1 over NCCL (4 runs:
      ms, edges/s as scripts/bench_gba_scaling.py counts them, the
-     run-to-run spread), with 4 gloo ranks sharing the card, and at world 1
-     on the CPU: n_guarded 0 for every run, 4 ranks against world 1 and
+     run-to-run spread), with 4 gloo ranks sharing the card (3 runs), and
+     at world 1 on the CPU: the run-to-run spread 0 and every repeat equal
+     to the bit at world 1 and on each gloo rank (gates), the
+     `segment_sum` kernel launched at world 1, n_guarded 0 for every
+     run, 4 ranks against world 1 and
      world 1 against the CPU within tests/test_torch_parallel.py's
      tolerance (poses 1e-4, point landmarks 5e-4, line endpoints 5e-4 off
      the other run's line); NCCL asked for two ranks on one card (refused
@@ -237,6 +249,8 @@ Phases, each fatal on failure:
      a frame built) and name this card (nvidia-smi's name and power
      limit); the phase's launches count into the kernel line.
 
+The runs of phases 5, 8 and 10 whose path holds a BA count the
+`segment_sum` kernel's launches from 0 and fail if it did not launch.
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is present. Uses no JAX and nothing of the
@@ -250,6 +264,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ANGLE_ATOL = 1e-3    # rad; the repo's kernel tolerance (tests/test_orb_pallas.py)
 BIT_AGREE = 0.995    # descriptor bits; same source
@@ -382,6 +397,84 @@ def bit_agreement(d1, d2) -> float:
     return float((b1 == b2).mean())
 
 
+SEG_RUNS: list = []   # (path, segment_sum launches) of each main-path run read
+SEG_KERNEL: dict = {}  # the segment_sum kernel's check and times (phase 8)
+
+
+def seg_reset() -> None:
+    """The segment_sum kernel's count to 0, just before a main-path run."""
+    from splslam_tpu_torch.ops import segsum as SS
+
+    SS.segment_sum.launches = 0
+
+
+def seg_read(path: str, on_path: bool) -> int:
+    """The segment_sum kernel's launches in the run just ended, kept for
+    the kernel line; a run whose path holds a BA (`on_path`) fails if
+    the kernel was not launched."""
+    from splslam_tpu_torch.ops import segsum as SS
+
+    n = SS.segment_sum.launches
+    SEG_RUNS.append((path, n))
+    print(f"segment_sum kernel launches in {path}: {n}")
+    if on_path and n == 0:
+        raise SystemExit(f"chip_smoke: {path}: the segment_sum kernel was not "
+                         "launched")
+    return n
+
+
+def segsum_bound(seg, width: int):
+    """(bound ms, "bytes" or "operations") of one `segment_sum` call on a
+    table of `width` columns: the kept rows read once with their order
+    entries, the cell starts read, the sums written; one float32 add a
+    kept row a column beyond each cell's first."""
+    kept = int(seg.start[-1])
+    nonempty = int((seg.start[1:] > seg.start[:-1]).sum())
+    nbytes = kept * width * 4 + kept * 4 + (seg.n_cells + 1) * 4 \
+        + seg.n_cells * width * 4
+    flops = (kept - nonempty) * width
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_segsum(recorded: dict, card: str) -> None:
+    """The segment_sum kernel against its plain version on every table a
+    global BA summed (`recorded`: (cells, width) -> (segments, rows)),
+    equal to the bit; the CG products' camera sum (the most frequent
+    call) timed beside its plain version, `index_add_` and its bound."""
+    import torch
+
+    from splslam_tpu_torch.ops import segsum as SS
+
+    worst = 0.0
+    for (n, w), (seg, rows) in sorted(recorded.items()):
+        k = SS.segment_sum(seg, rows)
+        ref = SS.segment_sum_reference(seg, rows)
+        torch.cuda.synchronize()
+        err = float((k - ref).abs().max()) if k.numel() else 0.0
+        worst = max(worst, err)
+        print(f"segment_sum vs plain, {rows.shape[0]} rows into {n} cells x {w} "
+              f"(lanes a cell {seg.group}): equal {torch.equal(k, ref)}, max abs "
+              f"err {err:.3e}")
+        if not torch.equal(k, ref):
+            raise SystemExit("chip_smoke: segment_sum disagrees with its plain version")
+    (n, w), (seg, rows) = min(((key, v) for key, v in recorded.items() if key[1] == 6),
+                              key=lambda kv: kv[0][0])
+    k_ms = graph_ms(lambda: SS.segment_sum(seg, rows))
+    p_ms = cuda_ms(lambda: SS.segment_sum_reference(seg, rows))
+    lib_ms = cuda_ms(lambda: torch.zeros((n + 1, w), device=rows.device)
+                     .index_add_(0, seg.cell, rows))
+    bound_ms, bound_by = segsum_bound(seg, w)
+    print(f"segment_sum, {rows.shape[0]} rows into {n} cameras x {w} (a CG "
+          f"product's sum): kernel {k_ms:.5f} ms on the device (graph of 20), plain "
+          f"{p_ms:.4f} ms, index_add_ {lib_ms:.5f} ms (CUDA events, median of 20); "
+          f"bound {bound_ms:.5f} ms by {bound_by}, on {card}")
+    SEG_KERNEL.update(max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=lib_ms,
+                      shape=[int(rows.shape[0]), int(n), int(w)])
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -391,6 +484,7 @@ def main() -> None:
 
     from splslam_tpu_torch.io.synthetic import ate_rmse, make_stereo_sequence, path_length
     from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.ops import segsum as SS
     from splslam_tpu_torch.ops.orb import detect
     from splslam_tpu_torch.ops.pyramid import PyramidSpec
     from splslam_tpu_torch.slam.frame import build_frame_stereo
@@ -406,11 +500,13 @@ def main() -> None:
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc a source, started together ----
     t0 = time.perf_counter()
-    lib = OK.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.path.name}")
-    for line in lib.log.splitlines():
+    with ThreadPoolExecutor(2) as pool:
+        lib, seg_lib = pool.map(lambda m: m.build(), (OK, SS))
+    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.path.name}, "
+          f"{seg_lib.path.name}")
+    for line in (lib.log + seg_lib.log).splitlines():
         if any(w in line for w in ("registers", "spill", "stack", "smem")):
             print(f"  ptxas: {line.strip()}")
     blocks = lib.lib.orb_describe_occupancy()
@@ -538,6 +634,17 @@ def main() -> None:
                        "steered BRIEF",
         "replaced_ms": r_ms,
         "call_ms": call_ms,
+    }, {
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "splslam_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "splslam_tpu/optim/ba.py:715",
+        "replaces_what": "no TPU kernel: the XLA scatter-adds of the solvers' "
+                         "segment sums (also splslam_tpu/optim/sim3.py:290)",
+        "launches": sum(n for _, n in SEG_RUNS),
+        "launches_by_path": dict(SEG_RUNS),
+        **SEG_KERNEL,
+        "library_call": "Tensor.index_add_",
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -585,6 +692,7 @@ def mapping_phase(st, frames, gt, card):
     times = []
     try:
         OK.orb_describe.launches = 0
+        seg_reset()
         for i, (l, r) in enumerate(frames):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -593,6 +701,7 @@ def mapping_phase(st, frames, gt, card):
             times.append((time.perf_counter() - t0) * 1e3)
         state = sysm.get_tracking_state()
         launches = OK.orb_describe.launches
+        seg_read("phase 5 mapping", True)
     finally:
         MO.mapping_step = run_step
     health = sysm.health()
@@ -683,44 +792,109 @@ def mapping_phase(st, frames, gt, card):
     return launches, float(np.median(times[10:]))
 
 
+def _snapshot(sysm):
+    """What `run_global_ba` changes: a copy of the map, the host pose log,
+    `map_version` and the loop closer's guard count."""
+    return (sysm.map.to(sysm.device), {k: v.copy() for k, v in sysm.kf_pose_host.items()},
+            sysm.map_version, sysm.loop_closer.n_guarded)
+
+
+def _restore(sysm, snap):
+    m, poses, version, guarded = snap
+    sysm.map = m.to(sysm.device)
+    sysm.kf_pose_host = {k: v.copy() for k, v in poses.items()}
+    sysm.map_version = version
+    sysm.loop_closer.n_guarded = guarded
+
+
+def _gba_outputs(res, sysm) -> tuple:
+    """Every output of a global BA: the solver's and the tables it wrote."""
+    m = sysm.map
+    return tuple(res) + (m.kfs.Tcw.clone(), m.pts.xyz.clone(), m.lns.xyz.clone())
+
+
+def _clone(x):
+    """A copy of a tensor or of a NamedTuple of tensors."""
+    return type(x)(*map(_clone, x)) if isinstance(x, tuple) else x.clone()
+
+
+def _first_difference(names, a, b) -> str:
+    import torch
+
+    for name, x, y in zip(names, a, b):
+        if not torch.equal(x, y):
+            return name
+    return "none"
+
+
+GBA_OUTPUTS = ("Tcw", "xyz", "e_inlier", "chi2", "total_chi2", "n_guarded",
+               "n_state_revert", "n_lm_singular", "map Tcw", "map points", "map lines")
+
+
 def global_ba_at_full_width(sysm, gt, card):
-    """Phase 8, first part: global BA over phase 5's final map."""
+    """Phase 8, first part: global BA over phase 5's final map, twice from
+    identical copies (every output equal to the bit), the segment_sum
+    kernel held against its plain version on the solve's own tables."""
     import torch
 
     from splslam_tpu_torch.io.synthetic import ate_rmse
-
+    from splslam_tpu_torch.optim import ba as BA
     from splslam_tpu_torch.slam.loop_closing import _k_bucket
 
     lc = sysm.loop_closer
-    kfs = sysm.map.kfs
-    K = _k_bucket(kfs.Tcw.shape[0], sysm.n_kfs)
+    K = _k_bucket(sysm.map.kfs.Tcw.shape[0], sysm.n_kfs)
     ate0 = ate_rmse(sysm.poses_reconstructed(), gt)
     version = sysm.map_version
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = lc.run_global_ba(rounds=1)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    snap = _snapshot(sysm)
+
+    def solve(path):
+        seg_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lc.run_global_ba(rounds=1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return res, ms, seg_read(path, True), _gba_outputs(res, sysm)
+
+    res, ms, seg_n, out1 = solve("phase 8 global BA at full width")
     ate1 = ate_rmse(sysm.poses_reconstructed(), gt)
+    _restore(sysm, snap)
+    recorded = {}
+    run = BA.segment_sum
+
+    def recording(seg, rows):
+        recorded.setdefault((seg.n_cells, rows.shape[1]), (seg, rows.clone()))
+        return run(seg, rows)
+
+    BA.segment_sum = recording
+    try:
+        _, ms2, _, out2 = solve("phase 8 global BA at full width, again")
+    finally:
+        BA.segment_sum = run
     n_dev, dev_ms, _ = device_kernels(lambda: lc.run_global_ba(rounds=1))
     ate2 = ate_rmse(sysm.poses_reconstructed(), gt)
     print(f"global BA at full width: {sysm.n_kfs} keyframes (bucket {K}), "
-          f"{K * kfs.lm_idx.shape[1]} edge rows ({int(res.e_inlier.sum())} "
+          f"{K * sysm.map.kfs.lm_idx.shape[1]} edge rows ({int(res.e_inlier.sum())} "
           f"inliers), {sysm.map.pts.xyz.shape[0]}-point table; n_guarded "
           f"{lc.n_guarded}, n_state_revert {int(res.n_state_revert)}, "
           f"n_lm_singular {int(res.n_lm_singular)}; ATE {ate0:.5f} -> {ate1:.5f} "
-          f"-> {ate2:.5f} (second solve)")
-    print(f"run_global_ba(rounds=1): {ms:.2f} ms synced; a second solve under "
-          f"torch.profiler: {n_dev} device activities, {dev_ms:.3f} ms device "
-          f"time (busy {dev_ms / ms:.3f} of the synced ms) on {card}")
+          f"-> {ate2:.5f} (a third solve)")
+    print(f"run_global_ba(rounds=1): {ms:.2f} and {ms2:.2f} ms synced, "
+          f"{seg_n} segment_sum launches; a third solve under torch.profiler: "
+          f"{n_dev} device activities, {dev_ms:.3f} ms device time (busy "
+          f"{dev_ms / ms:.3f} of the synced ms) on {card}")
+    check_segsum(recorded, card)
+    first = _first_difference(GBA_OUTPUTS, out1, out2)
+    bad = failed_gates("phase 8 global BA, two runs from identical copies", [
+        ("first output that differs", first, "==", "none")])
     checks = {
         "n_guarded == 0": lc.n_guarded == 0,
         "n_state_revert == 0": int(res.n_state_revert) == 0,
         "ATE no worse than 1.2x": ate1 <= 1.2 * ate0 and ate2 <= 1.2 * ate0,
         "map_version bumped": sysm.map_version == version + 2,
-        "poses finite": bool(torch.isfinite(kfs.Tcw).all()),
+        "poses finite": bool(torch.isfinite(sysm.map.kfs.Tcw).all()),
     }
-    failed = [k for k, ok in checks.items() if not ok]
+    failed = [k for k, ok in checks.items() if not ok] + bad
     if failed:
         raise SystemExit(f"chip_smoke: global BA failed: {failed}")
 
@@ -940,28 +1114,19 @@ def loop_phase(card, device="cuda"):
     return launches, sysm, scene
 
 
-def correction_phase(base, scene, card, device="cuda"):
-    """Phase 8, second and third part: the offline correction of injected
-    drift on phase 7's map, then the circuit with the correction live.
-    Returns the kernel launches of the live run."""
+def inject_drift(base, K, device):
+    """Drift into a copy of phase 7's map (tests/test_loop.py's ramp over
+    the keyframes after the loop candidate + 2 and the landmarks they
+    own), the host pose log with it; returns the loop's Sim3 re-measured
+    on the drifted map."""
     import numpy as np
     import torch
 
     from splslam_tpu_torch.geometry import se3
-    from splslam_tpu_torch.io.synthetic import ate_rmse
-    from splslam_tpu_torch.ops import orb_kernel as OK
-    from splslam_tpu_torch.optim import sim3 as S3
     from splslam_tpu_torch.slam import loop_closing as LC
-    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
 
-    K, bf, frames, gt = scene
-    lc = base.loop_closer
-    kf, cand = lc.verified_loops[0]
+    kf, cand = base.loop_closer.verified_loops[0]
     n = base.n_kfs
-    ate0 = ate_rmse(base.poses_reconstructed(), gt)
-    base_mapping_guarded = base.health()["mapping_guarded"]
-
-    # ---- offline: drift into a copy of the map, then _correct ----
     m = base.map.to("cpu")
     base.kf_pose_host = {k: v.copy() for k, v in base.kf_pose_host.items()}
     Tcw_d, xyz_d = m.kfs.Tcw.numpy(), m.pts.xyz.numpy()   # views of the copy
@@ -976,31 +1141,73 @@ def correction_phase(base, scene, card, device="cuda"):
         xyz_d[own] = xyz_d[own] @ W[:3, :3].T + W[:3, 3]
         base.kf_pose_host[k] = Tcw_d[k].copy()
     base.map = m.to(device)
-    ate_drift = ate_rmse(base.poses_reconstructed(), gt)
     K3 = torch.from_numpy(K).to(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(kf)
     *_, S12 = LC.compute_sim3_attempt(base.map, kf, cand, K3, True, generator=gen)
+    return S12
+
+
+def correction_phase(base, scene, card, device="cuda"):
+    """Phase 8, second and third part: the offline correction of injected
+    drift on phase 7's map, then the circuit with the correction live.
+    Returns the kernel launches of the live run."""
+    import torch
+
+    from splslam_tpu_torch.io.synthetic import ate_rmse
+    from splslam_tpu_torch.ops import orb_kernel as OK
+    from splslam_tpu_torch.optim import sim3 as S3
+    from splslam_tpu_torch.slam import loop_closing as LC
+    from splslam_tpu_torch.slam.system import Sensor, Settings, System, TrackingState
+
+    K, bf, frames, gt = scene
+    lc = base.loop_closer
+    kf, cand = lc.verified_loops[0]
+    n = base.n_kfs
+    ate0 = ate_rmse(base.poses_reconstructed(), gt)
+    base_mapping_guarded = base.health()["mapping_guarded"]
+
+    # ---- offline: drift into a copy of the map, then _correct ----
+    S12 = inject_drift(base, K, device)
+    ate_drift = ate_rmse(base.poses_reconstructed(), gt)
     n_valid = int(base.map.pts.valid.sum())
     ms = {"pose_graph_sim3": [], "loop_search_and_fuse": [], "run_global_ba": [],
           "_correct": []}
     run_pg, run_fuse = S3.pose_graph_sim3, LC.loop_search_and_fuse
-    S3.pose_graph_sim3 = _timed(run_pg, ms["pose_graph_sim3"], device)
+    timed_pg = _timed(run_pg, ms["pose_graph_sim3"], device)
+    pg_calls = []
+
+    def recorded_pg(*args, **kw):
+        """The solve, its inputs copied and its outputs kept."""
+        copies = [_clone(x) for x in args]
+        out = timed_pg(*args, **kw)
+        pg_calls.append((copies, kw, out))
+        return out
+
+    S3.pose_graph_sim3 = recorded_pg
     LC.loop_search_and_fuse = _timed(run_fuse, ms["loop_search_and_fuse"], device)
     lc.run_global_ba = _timed(lc.run_global_ba, ms["run_global_ba"], device)
     try:
+        seg_reset()
         _timed(lc._correct, ms["_correct"], device)(kf, cand, S12)
+        seg_read("phase 8 offline correction", torch.device(device).type == "cuda")
     finally:
         S3.pose_graph_sim3, LC.loop_search_and_fuse = run_pg, run_fuse
         del lc.run_global_ba
     ate_corr = ate_rmse(base.poses_reconstructed(), gt)
     n_valid_after = int(base.map.pts.valid.sum())
+    # pose_graph_sim3 again from copies of the same inputs
+    (args, kw, out1), = pg_calls
+    out2 = run_pg(*[_clone(x) for x in args], **kw)
+    pg_first = _first_difference(("s", "R", "t", "n_guarded"), out1, out2)
     print(f"offline correction of loop ({kf}, {cand}), {n} keyframes: ATE "
           f"{ate0:.5f} -> drifted {ate_drift:.5f} -> corrected {ate_corr:.5f}; "
           f"valid landmarks {n_valid} -> {n_valid_after}; n_guarded "
           f"{lc.n_guarded}, loop_edges {lc.loop_edges}")
     print("correction stages, synced ms: "
           + ", ".join(f"{k} {v[0]:.2f}" for k, v in ms.items()) + f" on {card}")
+    bad = failed_gates("phase 8 pose_graph_sim3, two runs from identical copies", [
+        ("first output that differs", pg_first, "==", "none")])
     checks = {
         "drift injected (ATE > 2x)": ate_drift > 2.0 * ate0,
         "n_guarded == 0": lc.n_guarded == 0,
@@ -1008,7 +1215,7 @@ def correction_phase(base, scene, card, device="cuda"):
         "the fuse merged landmarks": n_valid_after < n_valid,
         "loop edge kept": lc.loop_edges == [(kf, cand)],
     }
-    failed = [k for k, ok in checks.items() if not ok]
+    failed = [k for k, ok in checks.items() if not ok] + bad
     if failed:
         raise SystemExit(f"chip_smoke: offline correction failed: {failed}")
 
@@ -1018,10 +1225,12 @@ def correction_phase(base, scene, card, device="cuda"):
     sysm.loop_closer._correct = _timed(sysm.loop_closer._correct, live_ms, device)
     t0 = time.perf_counter()
     OK.orb_describe.launches = 0
+    seg_reset()
     for i, (l, r) in enumerate(frames):
         sysm.track_stereo(l, r, i * 0.2)
     state = sysm.get_tracking_state()
     launches = OK.orb_describe.launches
+    seg_read("phase 8 live correction", torch.device(device).type == "cuda")
     wall = time.perf_counter() - t0
     health = sysm.health()
     ate_live = ate_rmse(sysm.poses_reconstructed(), gt)
@@ -1351,8 +1560,10 @@ def line_backend_phase(card, phase9_ln_in, device="cuda", view=40):
     MO.mapping_step = recorded_step
     try:
         OK.orb_describe.launches = 0
+        seg_reset()
         times, ln_in = _mono_run(sysm, frames, device)
         launches = OK.orb_describe.launches
+        seg_read("phase 10 line back end", torch.device(device).type == "cuda")
     finally:
         MO.mapping_step = run_step
         del sysm.mapper.on_keyframe
@@ -1423,19 +1634,33 @@ def line_backend_phase(card, phase9_ln_in, device="cuda", view=40):
     n_adopt = int((lv & (cnt >= 2)).sum())
     lc = sysm.loop_closer
     g0 = lc.n_guarded
-    _sync(device)
-    t0 = time.perf_counter()
-    res = lc.run_global_ba(rounds=1, with_lines=True)
-    _sync(device)
-    gba_ms = (time.perf_counter() - t0) * 1e3
+    snap = _snapshot(sysm)
+    gba = []
+    for path in ("phase 10 global BA with lines", "phase 10 global BA with lines, again"):
+        if gba:
+            _restore(sysm, snap)
+        seg_reset()
+        _sync(device)
+        t0 = time.perf_counter()
+        res = lc.run_global_ba(rounds=1, with_lines=True)
+        _sync(device)
+        gba.append(((time.perf_counter() - t0) * 1e3,
+                    seg_read(path, torch.device(device).type == "cuda"),
+                    _gba_outputs(res, sysm)))
+    (gba_ms, seg_n, out1), (gba_ms2, _, out2) = gba
     finite = bool(torch.isfinite(sysm.map.kfs.Tcw).all()
                   and torch.isfinite(sysm.map.lns.xyz[lv]).all())
     ate_gba = ate_rmse(sysm.poses_reconstructed(), gt[idx], align_scale=True)
-    print(f"run_global_ba(rounds=1, with_lines=True): {gba_ms:.2f} ms synced, "
+    print(f"run_global_ba(rounds=1, with_lines=True): {gba_ms:.2f} and {gba_ms2:.2f} "
+          f"ms synced, {seg_n} segment_sum launches, "
           f"{sysm.n_kfs} keyframes, {n_lns} map lines, {n_adopt} adopted (>= 2 live "
           f"observations), n_guarded {lc.n_guarded - g0}, n_state_revert "
           f"{int(res.n_state_revert)}, finite {finite}, ATE of the reconstructed "
           f"frames {ate_gba:.5f}, on {card}")
+    gba_bad = failed_gates("phase 10 global BA with lines, two runs from identical "
+                           "copies", [("first output that differs",
+                                       _first_difference(GBA_OUTPUTS, out1, out2),
+                                       "==", "none")])
 
     # the last line mapping step on the card and on the CPU
     out = {}
@@ -1498,7 +1723,7 @@ def line_backend_phase(card, phase9_ln_in, device="cuda", view=40):
         "line mapping step integer-equal card vs CPU": not step_diff,
         "loaded map relocalizes": ok and n_in >= st.reloc_min_inliers,
     }
-    failed = [k for k, ok in checks.items() if not ok]
+    failed = [k for k, ok in checks.items() if not ok] + gba_bad
     if failed:
         raise SystemExit(f"chip_smoke: line back end failed: {failed}")
     return launches
@@ -2244,7 +2469,19 @@ def sharded_gba_phase(card, device="cuda"):
     print("gba_sharded run-to-run spread on the card (world 1, 3 repeats "
           "against the first; pose max abs, landmark max and q99 distance): "
           + "; ".join(f"{a:.3e} / {b:.3e} / {c:.3e}" for a, b, c in w1["spread"])
+          + "; 4 gloo ranks, 2 repeats: "
+          + "; ".join(f"{a:.3e} / {b:.3e} / {c:.3e}" for a, b, c in four[0]["spread"])
           + f", on {card}")
+    spread = lambda out: max(max(x) for x in out["spread"])
+    repeat_bad = failed_gates("phase 15 (d) run-to-run", [
+        ("world 1 NCCL: largest difference of 3 repeats to the first", spread(w1),
+         "==", 0.0),
+        ("world 1 NCCL: repeats equal to the bit", all(w1["equal"]), "==", True),
+        ("4 gloo ranks: largest difference of 2 repeats to the first",
+         max(spread(o) for o in four), "==", 0.0),
+        ("4 gloo ranks: repeats equal to the bit",
+         all(all(o["equal"]) for o in four), "==", True),
+        ("world 1 NCCL: segment_sum kernel launches", w1["seg_launches"], ">", 0)])
     gaps = {"4 gloo ranks vs world 1": _gba_gaps(four[0], w1, n_pts),
             "world 1 card vs CPU": _gba_gaps(w1, runs["CPU, world 1, gloo"], n_pts)}
     if "4 cards, 4 NCCL ranks" in runs:
@@ -2280,7 +2517,7 @@ def sharded_gba_phase(card, device="cuda"):
         "within tolerance": all(dT <= GBA_POSE_ATOL and dX <= GBA_XYZ_ATOL
                                 and dE <= GBA_XYZ_ATOL for dT, dX, dE in gaps.values()),
     }
-    failed = [k for k, ok in checks.items() if not ok]
+    failed = [k for k, ok in checks.items() if not ok] + repeat_bad
     if failed:
         raise SystemExit(f"chip_smoke: phase 15 (d) failed: {failed}")
 

@@ -16,11 +16,13 @@ PyTorch port (`splslam_tpu_torch`), on one GPU.
      keyframe every 4 frames, then times and profiles
      `run_global_ba(rounds=1)` over that map (keyframe bucket 32, 64,000
      edge rows, 65,536 points) and `ba_solve_pcg` alone.
-  3. The segment sums of `ba_solve_pcg` at that size: `index_add_` of
-     [E,3] rows into the landmark table and of [E,6] rows into the camera
-     table with the edge table's own (unsorted) index, and with the rows
-     gathered into sorted order first (the gather inside the timing, as a
-     matrix-vector product would pay it), by CUDA events.
+  3. The segment sums of `ba_solve_pcg` at that size, [E,3] rows into the
+     landmark table and [E,6] rows into the camera table: the fixed-order
+     `segment_sum` the solver runs (`ops/segsum.py`, its cells prepared
+     once), and as yardsticks `index_add_` with the edge table's own
+     (unsorted) index and with the rows gathered into sorted order first
+     (the gather inside the timing, as a matrix-vector product would pay
+     it), by CUDA events.
 Prints the card line and one JSON line with every number.
 """
 
@@ -49,6 +51,7 @@ def main() -> None:
         raise SystemExit("port_correction_profile: no CUDA device")
     import chip_smoke as smoke
     from splslam_tpu_torch.io.synthetic import make_loop_circuit, make_stereo_sequence
+    from splslam_tpu_torch.ops.segsum import Segments, segment_sum
     from splslam_tpu_torch.optim import ba as BA
     from splslam_tpu_torch.optim import sim3 as S3
     from splslam_tpu_torch.slam import loop_closing as LC
@@ -169,7 +172,9 @@ def main() -> None:
         rows = torch.randn((E, width), device="cuda", generator=g)
         order = torch.argsort(idx, stable=True)
         sidx = idx[order]
+        seg = Segments(idx, size)
         scat[name] = {
+            "segment_sum_ms": smoke.cuda_ms(lambda: segment_sum(seg, rows)),
             "unsorted_ms": smoke.cuda_ms(lambda: torch.zeros(
                 (size, width), device="cuda").index_add_(0, idx, rows)),
             "gather_then_sorted_ms": smoke.cuda_ms(lambda: torch.zeros(

@@ -28,6 +28,14 @@ def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
     return bits.reshape(desc.shape[0], -1).float() * 2.0 - 1.0
 
 
+def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
+    """[N,8] int32 packed descriptors -> [N,256] uint8 bits (bit j of word
+    w in column 32w+j)."""
+    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
+    bits = (desc[:, :, None] >> shifts) & 1
+    return bits.reshape(desc.shape[0], -1).to(torch.uint8)
+
+
 def hamming(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """All-pairs Hamming distance. [N1,8]x[N2,8] int32 -> [N1,N2] int32."""
     dot = unpack_pm1(d1) @ unpack_pm1(d2).T
@@ -48,6 +56,13 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     shift of a negative int32 never leaks a sign bit and nothing can
     overflow."""
     return _popcount16(x & 0xFFFF) + _popcount16((x >> 16) & 0xFFFF)
+
+
+def hamming_matrix_xor(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """Popcount-XOR all-pairs Hamming distance. [N1,8]x[N2,8] int32 ->
+    [N1,N2] int32 (equal to `hamming`)."""
+    x = torch.bitwise_xor(d1[:, None, :], d2[None, :, :])
+    return torch.sum(popcount32(x), dim=-1).to(torch.int32)
 
 
 def masked_distances(

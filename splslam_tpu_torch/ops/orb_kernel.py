@@ -34,16 +34,13 @@ the source and flags, and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from splslam_tpu_torch.ops.nvcc import NVCC_FLAGS, build_library
 from splslam_tpu_torch.ops.orb import make_pattern
 from splslam_tpu_torch.ops.pyramid import BLUR_TAPS, PyramidSpec, gaussian_blur
 
@@ -58,9 +55,6 @@ MAX_IMAGES = 2     # the kernel's limits (csrc/orb_describe.cu kMaxImages,
 MAX_LEVELS = 16    # kMaxLevels)
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "orb_describe.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def pair_table() -> np.ndarray:
@@ -229,34 +223,13 @@ class _Library:
 _LIB: _Library | None = None
 
 
-def _nvcc() -> str:
-    """nvcc from PATH, else from the CUDA toolkit under CUDA_HOME."""
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    return shutil.which("nvcc") or str(home / "bin" / "nvcc")
-
-
 def build() -> _Library:
     """Build (if needed) and load the kernel library; cached per process.
     A failed build raises with nvcc's stderr."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    code = _SOURCE.read_bytes()
-    key = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"orb_describe-{key}.so"
-    log = ""
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed with code {r.returncode}:\n{r.stderr}")
-        log = r.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, so, log = build_library(_SOURCE, NVCC_FLAGS)
     lib.orb_describe_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

@@ -90,6 +90,15 @@ def build_pyramid(image: torch.Tensor, spec: PyramidSpec) -> list[torch.Tensor]:
     return levels
 
 
+def gaussian_kernel1d(sigma: float, radius: int, device=None) -> torch.Tensor:
+    """The normalized float32 Gaussian [2 radius + 1], computed in float32
+    as the JAX package computes it (the blur itself takes `_blur_taps`,
+    made in float64 and rounded, as the reference's numpy taps)."""
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / torch.sum(k)
+
+
 def _blur_taps(sigma: float, radius: int) -> list[float]:
     k = np.exp(-0.5 * (np.arange(-radius, radius + 1) / sigma) ** 2)
     return [float(v) for v in (k / k.sum()).astype(np.float32)]

@@ -35,6 +35,7 @@ import torch
 from splslam_tpu_torch.geometry import se3
 from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops.consts import device_const
+from splslam_tpu_torch.ops.segsum import Segments, segment_sum
 
 
 def _triu_maps(n: int):
@@ -160,54 +161,6 @@ def _bsum(a, b, dim):
     return torch.sum(a * b, dim=dim)
 
 
-class _OrderedCells(NamedTuple):
-    """A fixed summation order for rows that share a cell (see
-    `_ordered_cells`)."""
-
-    order: torch.Tensor   # [E] stable sort of the rows by cell
-    head: torch.Tensor    # [E] cell of a segment's first row, else n_cells
-    steps: tuple          # ((mask [E,1] bool, stride), ...) of the tree sum
-    n_cells: int
-
-
-def _ordered_cells(cell: torch.Tensor, n_cells: int, max_rows: int) -> _OrderedCells:
-    """Prepare `_sum_cells` for rows whose cell index is `cell` [E] (rows
-    with cell == n_cells are dropped). Rows are sorted by cell once
-    (stable, so a segment keeps the table's row order) and each segment is
-    summed by a pairwise tree over its ranks, which is the same sequence
-    of float additions on every run and on every device; `index_add_` on
-    CUDA adds colliding rows by atomics in launch order instead. The tree
-    has ceil(log2(max_rows)) levels: a cell may hold at most `max_rows`
-    rows."""
-    E = cell.shape[0]
-    order = torch.argsort(cell, stable=True)
-    sc = cell[order]
-    pos = torch.arange(E, device=cell.device)
-    rank = pos - torch.searchsorted(sc, sc)
-    steps = []
-    d = 1
-    while d < max_rows:
-        nxt = torch.clamp(pos + d, max=E - 1)
-        take = (rank % (2 * d) == 0) & (pos + d < E) & (sc[nxt] == sc)
-        steps.append((take[:, None], d))
-        d *= 2
-    head = torch.where(rank == 0, sc, n_cells)
-    return _OrderedCells(order, head, tuple(steps), n_cells)
-
-
-def _sum_cells(oc: _OrderedCells, rows: torch.Tensor) -> torch.Tensor:
-    """[n_cells, W] sums of `rows` [E, W] over the rows of each cell, in
-    the fixed order of `oc`."""
-    ps = rows[oc.order]
-    for take, d in oc.steps:
-        ps = ps + torch.where(take, torch.roll(ps, -d, 0), 0.0)
-    acc = torch.zeros((oc.n_cells + 1, rows.shape[1]), device=rows.device)
-    # Segment heads hold their cell's sum and are unique per cell; every
-    # other row lands in the spare last slot, which is dropped.
-    acc[oc.head] = ps
-    return acc[:oc.n_cells]
-
-
 def _edge_terms(Tcw_all, xyz_all, cam: Camera, p: BAProblem):
     """Residuals r [E,3], J_c [E,3,6], J_p [E,3,3], chi2 [E], depth-ok [E].
     Mono edges use rows 0..1 (row 2 zeroed through the stereo mask)."""
@@ -325,7 +278,7 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
     free_edge = (p.e_cam < Cf) & p.cam_free[p.e_cam.clamp(min=0).long()]
     ec = torch.where(free_edge, p.e_cam, Cf)
     n_cells = (Cf + 1) * L
-    cells = _ordered_cells(
+    cells = Segments(
         torch.where(p.e_ok, (ec * L + p.e_lm).long(), n_cells), n_cells,
         max_rows=4 * C)
 
@@ -347,7 +300,7 @@ def ba_solve(cam: Camera, p: BAProblem, *, rounds: int = 2, iters: int = 5,
         payload = torch.cat([Hcc_e.reshape(-1, 36)[:, triu6], g_c,
                              Hpp_e.reshape(-1, 9)[:, triu3], g_p,
                              Hcp_e.reshape(-1, 18)], dim=-1)     # [E,54]
-        acc = _sum_cells(cells, payload).reshape(Cf + 1, L, 54)
+        acc = segment_sum(cells, payload).reshape(Cf + 1, L, 54)
         acc_c = torch.sum(acc[:Cf, :, :27], dim=1)
         Hcc = acc_c[:, full6].reshape(Cf, 6, 6)
         bc = acc_c[:, 21:]
@@ -471,11 +424,11 @@ def ba_solve_arbitrated(cam: Camera, p: BAProblem, *, rounds: int = 2,
     kw = dict(rounds=rounds, iters=iters, n_free=n_free)
     resP = ba_solve(cam, p._replace(e_ok=p.e_ok & ~p.e_line), **kw)
     resL = ba_solve(cam, p._replace(e_ok=p.e_ok & p.e_line), **kw)
-    cells = _ordered_cells(p.e_cam.long(), C, max_rows=p.e_cam.shape[0])
+    cells = Segments(p.e_cam.long(), C)
 
     def unit_error(res, mask):
         ok = (res.e_inlier & mask).to(torch.float32)
-        sums = _sum_cells(cells, torch.stack([res.chi2 * ok, ok], dim=1))
+        sums = segment_sum(cells, torch.stack([res.chi2 * ok, ok], dim=1))
         num, den = sums[:, 0], sums[:, 1]
         return torch.where(den > 0, num / torch.clamp(den, min=1.0), math.inf), den
 
@@ -528,10 +481,10 @@ def ba_solve_pcg(cam: Camera, p: BAProblem, *, rounds: int = 2,
     edge by its pair's joint chi2, see `_gates`). Nothing is read back
     to the host.
 
-    The segment sums are `index_add_` over the unsorted edge table (point
-    and line edges in one table: the line block is camera-major on its
-    own, so the whole is not sorted by camera): on CUDA colliding rows
-    are added in launch order, so two runs differ by float noise."""
+    The segment sums over cameras and landmarks run in the fixed order of
+    `ops/segsum.py`, prepared once per solve (the edge table is point and
+    line edges in one: the line block is camera-major on its own, so the
+    whole is not sorted by camera), so two runs give the same bits."""
     C = p.Tcw.shape[0]
     L = p.xyz.shape[0]
     dev = p.Tcw.device
@@ -544,14 +497,13 @@ def ba_solve_pcg(cam: Camera, p: BAProblem, *, rounds: int = 2,
     cam_put, cam_get = _segment(p.e_cam, C)
     e_free = p.cam_free[cam_get].to(torch.float32)
     p = p._replace(e_cam=cam_get, e_lm=lm_get)      # what the edge terms gather
+    lm_cells, cam_cells = Segments(lm_put, L), Segments(cam_put, C)
 
     def seg_lm(x):
-        return torch.zeros((L + 1, x.shape[1]), device=dev) \
-            .index_add_(0, lm_put, x)[:L]
+        return segment_sum(lm_cells, x)
 
     def seg_cam(x):
-        return torch.zeros((C + 1, x.shape[1]), device=dev) \
-            .index_add_(0, cam_put, x)[:C]
+        return segment_sum(cam_cells, x)
 
     def gn_step(Tcw_all, xyz_all, active):
         r, J_c, J_p, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)

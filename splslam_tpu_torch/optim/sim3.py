@@ -32,6 +32,7 @@ from torch.func import jacfwd
 
 from splslam_tpu_torch.geometry import se3
 from splslam_tpu_torch.ops.linalg import rotation_and_singular_values
+from splslam_tpu_torch.ops.segsum import Segments, segment_sum
 
 CHI2_RANSAC = 9.21   # 2-dof 99% (reference Sim3Solver, 9.210 * sigma2)
 CHI2_OPT = 10.0      # reference OptimizeSim3 th2
@@ -221,9 +222,9 @@ def pose_graph_sim3(
     iterations whose update was zeroed because the solve was not finite
     (0 on a healthy solve).
 
-    The blocks of edges that share a keyframe are summed by `index_add_`,
-    on CUDA in launch order: float noise between runs, and no decision
-    hangs on it (there is no accept test)."""
+    The blocks of edges that share a keyframe are summed in the fixed
+    order of `ops/segsum.py` (the slot table is built once, before the GN
+    iterations), so two runs give the same bits."""
     K = s_all.shape[0]
     dev = s_all.device
     E = edges.i.shape[0]
@@ -243,8 +244,11 @@ def pose_graph_sim3(
         return torch.cat([te, rot_err,
                           torch.log(torch.clamp(se_, min=1e-9))[:, None]], dim=-1)
 
-    # Where each edge's four 7x7 blocks land in H, as [K*K] block slots.
-    slots = torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei])
+    # Where each edge's four 7x7 blocks land in H, as [K*K] block slots,
+    # and its two gradient rows in b.
+    h_cells = Segments(torch.cat([ei * K + ei, ej * K + ej, ei * K + ej,
+                                  ej * K + ei]), K * K)
+    b_cells = Segments(torch.cat([ei, ej]), K)
     anchor = torch.repeat_interleave(1.0 - free_f, 7) * 1e6
     wf_i = edges.weight * free_f[ei]
     wf_j = edges.weight * free_f[ej]
@@ -268,10 +272,9 @@ def pose_graph_sim3(
         Hij = torch.einsum("eki,e,ekj->eij", Ji, wf_ij, Jj)
         bi = torch.einsum("eki,e,ek->ei", Ji, wf_i, r)
         bj = torch.einsum("eki,e,ek->ei", Jj, wf_j, r)
-        H = torch.zeros((K * K, 7, 7), device=dev).index_add_(
-            0, slots, torch.cat([Hii, Hjj, Hij, Hij.transpose(1, 2)]))
-        b = torch.zeros((K, 7), device=dev).index_add_(
-            0, torch.cat([ei, ej]), torch.cat([bi, bj]))
+        H = segment_sum(h_cells, torch.cat([Hii, Hjj, Hij, Hij.transpose(1, 2)])
+                        .reshape(4 * E, 49)).reshape(K * K, 7, 7)
+        b = segment_sum(b_cells, torch.cat([bi, bj]))
         A = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(K * 7, K * 7)
         # Damping relative to H's own diagonal, BEFORE the gauge anchors:
         # a trace-scaled damping would pick up the 1e6 anchor entries and

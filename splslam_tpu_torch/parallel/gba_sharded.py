@@ -6,8 +6,10 @@ of the BA back end is the EDGE TABLE. Camera and landmark states are
 small (a few MB) and stay replicated on every rank; the observation
 edges, the O(K*N) part, shard across ranks. Every Hessian-block and
 gradient accumulation and every matrix-free Schur product in the PCG loop
-is a local segment sum (`index_add_`) over the rank's edge shard followed
-by one `all_reduce` over the mesh.
+is a local segment sum over the rank's edge shard, in the fixed order of
+`ops/segsum.py` (prepared once per solve), followed by one `all_reduce`
+over the mesh. At a fixed world size the all-reduce's order is fixed too,
+so two runs give the same bits.
 
 The single-device solver's semantics carry over (`optim.ba._edge_terms`,
 `_gates`, `_huber_weight` are shared): line-endpoint edges with the joint
@@ -30,6 +32,7 @@ import torch
 
 from splslam_tpu_torch.geometry import se3
 from splslam_tpu_torch.geometry.camera import Camera
+from splslam_tpu_torch.ops.segsum import Segments, segment_sum
 from splslam_tpu_torch.optim.ba import (
     BAProblem,
     _bsum,
@@ -41,26 +44,32 @@ from splslam_tpu_torch.optim.ba import (
 from splslam_tpu_torch.parallel.mesh import Mesh
 
 
+def _shard_cells(p: BAProblem, C: int, L: int):
+    """(landmark cells, camera cells) of a shard's edges for `segment_sum`,
+    and their gather indices: built once per solve."""
+    lm_put, lm_get = _segment(p.e_lm, L)
+    cam_put, cam_get = _segment(p.e_cam, C)
+    return Segments(lm_put, L), Segments(cam_put, C), lm_get, cam_get
+
+
 def _gn_step_sharded(cam: Camera, p: BAProblem, Tcw_all, xyz_all, active,
-                     cg_iters: int, damping: float, mesh: Mesh):
+                     cg_iters: int, damping: float, mesh: Mesh, cells):
     """One GN step with edge-sharded accumulation. `p.e_*` are this rank's
     shard; states are replicated. `active` is the shard's round-level
-    inlier mask. Returns (Tcw, xyz, n_guarded increment)."""
+    inlier mask; `cells` is `_shard_cells` of the shard. Returns (Tcw,
+    xyz, n_guarded increment)."""
     C = Tcw_all.shape[0]
     L = xyz_all.shape[0]
     dev = Tcw_all.device
     _, huber_d2, _ = _gates(p)
-    lm_put, lm_get = _segment(p.e_lm, L)
-    cam_put, cam_get = _segment(p.e_cam, C)
+    lm_cells, cam_cells, lm_get, cam_get = cells
     allsum = mesh.allsum
 
     def seg_lm(x):
-        return torch.zeros((L + 1, x.shape[1]), device=dev) \
-            .index_add_(0, lm_put, x)[:L]
+        return segment_sum(lm_cells, x)
 
     def seg_cam(x):
-        return torch.zeros((C + 1, x.shape[1]), device=dev) \
-            .index_add_(0, cam_put, x)[:C]
+        return segment_sum(cam_cells, x)
 
     r, J_c, J_p, chi2, z_ok = _edge_terms(Tcw_all, xyz_all, cam, p)
     w = (_huber_weight(chi2, huber_d2) * p.e_inv_sigma2
@@ -204,17 +213,20 @@ def gba_sharded(cam: Camera, p: BAProblem, mesh: Mesh, *,
         is_pair = prob.e_line & (prob.e_pair >= 0)
         key = torch.where(is_pair, torch.minimum(gid, prob.e_pair.long()),
                           E_tot)
+        # Each pair's slot takes its two chi2 (0 + a + b: exact in any
+        # order, on a rank and over the mesh); every other row adds 0.0.
         sums = mesh.allsum(torch.zeros((E_tot + 1,), device=dev).index_add_(
-            0, key, torch.where(valid, chi2, 0.0)))
+            0, key, torch.where(valid & is_pair, chi2, 0.0)))
         return torch.where(is_pair, sums[key.clamp(max=E_tot - 1)], chi2)
 
     T, X = prob.Tcw, prob.xyz
+    cells = _shard_cells(prob, T.shape[0], X.shape[0])
     active = prob.e_ok
     ng = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(rounds):
         for _ in range(gn_iters):
             T, X, n_bad = _gn_step_sharded(cam, prob, T, X, active,
-                                           cg_iters, damping, mesh)
+                                           cg_iters, damping, mesh, cells)
             ng = ng + n_bad
         # Round-end reclassification (reference two-phase schedule,
         # src/Optimizer.cc:2713-2764).
@@ -236,10 +248,13 @@ def solve_on_rank(mesh: Mesh, cam: Camera, problem: BAProblem, kw: dict,
     times. Returns host data: the first run's Tcw, xyz and n_guarded, the
     synced wall ms of each run, and for each later run its largest pose
     difference to the first and the largest and 99th-percentile landmark
-    distance to it (the run-to-run spread)."""
+    distance to it (the run-to-run spread), whether its Tcw, xyz and
+    n_guarded equal the first run's to the bit (`equal`), and the
+    `segment_sum` kernel launches of all the runs."""
     p = BAProblem(*(None if x is None else torch.as_tensor(np.asarray(x))
                     .to(mesh.device) for x in problem))
-    first, ms, spread = None, [], []
+    first, ms, spread, equal = None, [], [], []
+    launches = segment_sum.launches
     for _ in range(reps):
         _sync(mesh.device)
         t0 = time.perf_counter()
@@ -252,6 +267,9 @@ def solve_on_rank(mesh: Mesh, cam: Camera, problem: BAProblem, kw: dict,
         dist = torch.linalg.norm(X - first[1], dim=-1)
         spread.append((float((T - first[0]).abs().max()), float(dist.max()),
                        float(torch.quantile(dist.cpu(), 0.99))))
+        equal.append(all(torch.equal(a, b) for a, b in zip((T, X, ng), first)))
     T, X, ng = first
     return dict(Tcw=T.cpu().numpy(), xyz=X.cpu().numpy(), n_guarded=int(ng),
-                ms=ms, spread=spread, edges=int(problem.e_cam.shape[0]))
+                ms=ms, spread=spread, equal=equal,
+                seg_launches=segment_sum.launches - launches,
+                edges=int(problem.e_cam.shape[0]))

@@ -26,6 +26,11 @@ class FrameData(NamedTuple):
     depth: torch.Tensor    # [N] stereo depth, -1 if unknown
     lines: LineFeatures    # fixed-capacity line table (all invalid if unused)
 
+    @property
+    def n(self) -> int:
+        """The keypoint table's capacity."""
+        return self.feat.capacity
+
 
 def _lines(image: torch.Tensor, line_capacity: int, line_cfg: tuple) -> LineFeatures:
     return extract_lines(image, capacity=line_capacity, backend=line_cfg[0],

@@ -147,6 +147,11 @@ class MapState(NamedTuple):
             n_pts=zero(), n_lns=zero(), n_kfs=zero(),
         )
 
+    @property
+    def capacity_pts(self) -> int:
+        """The point table's capacity."""
+        return self.pts.xyz.shape[0]
+
 
 def scale_band(depth: torch.Tensor, octave: torch.Tensor, scale_factor: float,
                n_levels: int):

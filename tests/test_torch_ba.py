@@ -26,8 +26,9 @@ decides.
 
 `ba_solve_pcg` (global BA) on tests/test_ba.py's 8-camera problem, mono
 and stereo, against the reference with the same tolerances, and against
-the port's own dense `ba_solve` (both reach the optimum). `_sum_cells`,
-the fixed-order sum of `ba_solve`'s cell buffer, against `index_add_`.
+the port's own dense `ba_solve` (both reach the optimum). The
+fixed-order segment sum of the solvers (`ops/segsum.py`) against
+`index_add_`.
 
 Line edges: tests/test_ba.py's stereo problem plus 24 map lines, each a
 pair of endpoint slots observed by every camera as a pair of 1-dof edges
@@ -47,6 +48,7 @@ import test_ba as JBA
 from splslam_tpu.optim import ba as JB
 from splslam_tpu_torch import convert
 from splslam_tpu_torch.geometry.camera import Camera as TCam
+from splslam_tpu_torch.ops import segsum as SS
 from splslam_tpu_torch.optim import ba as TB
 
 TCAM = TCam.create(fx=500.0, fy=500.0, cx=320.0, cy=240.0, bf=50.0,
@@ -281,8 +283,8 @@ def test_sum_cells_is_an_ordered_index_add():
     cell[:60] = 7                                 # a cell with 60+ rows
     cell[cell == 11] = 12                         # an empty cell
     rows = torch.randn((E, 5), generator=g)
-    oc = TB._ordered_cells(cell, n, max_rows=128)
-    got = TB._sum_cells(oc, rows)
+    oc = SS.Segments(cell, n, max_rows=128)
+    got = SS.segment_sum(oc, rows)
     ref = torch.zeros((n + 1, 5), dtype=torch.float64).index_add_(
         0, cell, rows.double())[:n]
     # float32 pairwise sums against a float64 sum: measured 1.9e-6
@@ -290,7 +292,7 @@ def test_sum_cells_is_an_ordered_index_add():
     assert not got[11].any()
     # a permutation that keeps each cell's rows in order gives equal bits
     perm = torch.argsort(cell % 7, stable=True)
-    again = TB._sum_cells(TB._ordered_cells(cell[perm], n, max_rows=128), rows[perm])
+    again = SS.segment_sum(SS.Segments(cell[perm], n, max_rows=128), rows[perm])
     assert torch.equal(again, got)
 
 

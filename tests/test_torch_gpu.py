@@ -52,9 +52,13 @@ along its ray) and inlier masks >= 99% equal (the cell sums run in one
 fixed order on both devices; the products and reductions around them do
 not). Loop correction: the fuse's integer tables exact; pose graph within
 1e-4; global BA poses within 1e-3, 99% of the landmarks within 1e-3 and
-inlier masks >= 99% equal (its segment sums are float atomics on the
-card); `_correct` reads nothing back to the host apart from its listed
-copies (`loop_closing._host`). BoW word ids and row ids exact (integer
+inlier masks >= 99% equal (its segment sums run in one fixed order on
+both devices, the products around them do not); `_correct` reads nothing
+back to the host apart from its listed copies (`loop_closing._host`).
+Repeatability: the `segment_sum` kernel equal to its plain version at the
+solvers' shapes, and `ba_solve_pcg` (global BA with and without line
+edges), `pose_graph_sim3` and `gba_sharded` (world 1 over NCCL, 4 gloo
+ranks) twice from identical copies: every output equal to the bit. BoW word ids and row ids exact (integer
 popcounts). Kidnap: the same tracking states and lost frames, the same
 relocalization keyframe, poses within 1e-3 (with the RANSAC draws made
 equal: each device's own generator draws another stream, and the
@@ -535,6 +539,89 @@ def test_ba_solve_pcg_gpu_matches_cpu(cuda, loop_map):
         np.testing.assert_allclose(sg.kf_pose_host[k], sc.kf_pose_host[k], atol=1e-3)
 
 
+SEGSUM_SHAPES = {   # rows, cells, width: the solvers' sums on the card
+    "pcg_cameras": (64000, 32, 6),        # chip_smoke phase 8's CG products
+    "pcg_landmarks": (64000, 16384, 3),
+    "pcg_camera_blocks": (64000, 32, 42),
+    "pose_graph_blocks": (4 * 600, 64 * 64, 49),
+    "local_ba_cells": (20000, 9 * 4096, 54),
+    "one_cell_and_sentinels": (100000, 5, 2),
+}
+
+
+@pytest.mark.parametrize("shape", list(SEGSUM_SHAPES))
+def test_segment_sum_kernel_matches_plain(cuda, shape):
+    """Kernel and plain version equal at the solvers' shapes, and the
+    kernel equal to itself on a second launch."""
+    from splslam_tpu_torch.ops import segsum as SS
+
+    E, n, W = SEGSUM_SHAPES[shape]
+    g = torch.Generator().manual_seed(E + n + W)
+    if shape == "one_cell_and_sentinels":
+        cell = torch.full((E,), 3)
+        cell[::7] = n                     # the sentinel: dropped
+        cell[::11] = -1                   # below 0: dropped
+    else:
+        cell = torch.randint(0, n + 1, (E,), generator=g)
+    rows = torch.randn((E, W), generator=g) * 10.0 ** torch.randint(
+        -3, 4, (E, 1), generator=g)
+    seg = SS.Segments(cell.to(cuda), n)
+    before = SS.segment_sum.launches
+    a = SS.segment_sum(seg, rows.to(cuda))
+    b = SS.segment_sum(seg, rows.to(cuda))
+    ref = SS.segment_sum_reference(seg, rows.to(cuda))
+    torch.cuda.synchronize()
+    assert SS.segment_sum.launches == before + 4      # two launches a sum
+    assert torch.equal(a, b) and torch.equal(a, ref)
+    assert torch.equal(ref.cpu(), SS.segment_sum(SS.Segments(cell, n), rows))
+    with pytest.raises(ValueError):
+        SS.segment_sum(seg, rows.to(cuda).double())
+    with pytest.raises(ValueError):
+        SS.segment_sum(seg, rows.to(cuda).repeat(1, 2)[:, ::2])
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("with_lines", [False, True])
+def test_global_ba_repeats_to_the_bit(cuda, with_lines, request):
+    """`run_global_ba` twice on the card from identical copies of a map
+    (the loop map; with lines, the mono line map): every output of the
+    solve and every table it writes equal to the bit."""
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    sysm = request.getfixturevalue("line_map" if with_lines else "loop_map")[0]
+    runs = []
+    for _ in range(2):
+        stub = _stub(sysm, cuda)
+        res = TLC.LoopCloser(stub).run_global_ba(rounds=1, with_lines=with_lines)
+        runs.append((res, stub))
+    (r1, s1), (r2, s2) = runs
+    assert _equal(r1, r2)
+    assert _equal((s1.map.kfs.Tcw, s1.map.pts.xyz, s1.map.lns.xyz),
+                  (s2.map.kfs.Tcw, s2.map.pts.xyz, s2.map.lns.xyz))
+    for k in s1.kf_pose_host:
+        np.testing.assert_array_equal(s1.kf_pose_host[k], s2.kf_pose_host[k])
+
+
+def test_pose_graph_sim3_repeats_to_the_bit(cuda, loop_map):
+    from splslam_tpu_torch.optim import sim3 as TS3
+    from splslam_tpu_torch.slam import loop_closing as TLC
+
+    sysm, kf, cand, S12, _ = loop_map
+    n = sysm.n_kfs
+    edges = TS3.PoseGraphEdges(*[x.to(cuda) for x in TLC._build_pose_graph_edges(
+        sysm.map, n, kf, cand, S12)])
+    K = TLC._k_bucket(sysm.map.kfs.Tcw.shape[0], n)
+    Tcw = sysm.map.kfs.Tcw[:K].to(cuda)
+    free = (torch.arange(K, device=cuda) < n) & (torch.arange(K, device=cuda) != 0)
+    a, b = (TS3.pose_graph_sim3(torch.ones((K,), device=cuda), Tcw[:, :3, :3].clone(),
+                                Tcw[:, :3, 3].clone(), free, edges, iters=15,
+                                fix_scale=True) for _ in range(2))
+    assert _equal(a, b)
+
+
 def test_correct_does_not_sync_outside_its_host_copies(cuda, loop_map, monkeypatch):
     """`_correct` on the card under `set_sync_debug_mode("warn")`, every
     warning collected and none allowed: only the copies made through
@@ -856,7 +943,8 @@ def test_global_ba_with_lines_gpu_matches_cpu(cuda, line_map):
     """`run_global_ba(with_lines=True)` on the final line map, card against
     CPU: poses within 1e-3, 99% of the landmarks within 1e-3, inlier masks
     >= 99% equal, the adopted lines' endpoints within 1e-2 off the CPU's
-    line (their segment sums are float atomics on the card)."""
+    line (the products and reductions around the fixed-order segment sums
+    round otherwise on the card)."""
     from splslam_tpu_torch.slam import loop_closing as TLC
 
     sysm = line_map[0]
@@ -1250,10 +1338,11 @@ def gba_runs():
     cam, p = make_gba_problem(device="cpu")
     pn = ba_problem_to_numpy(p)
     return dict(
-        card=launch(solve_on_rank, 1, "cuda", timeout_s=300, args=(cam, pn, GBA_KW))[0],
+        card=launch(solve_on_rank, 1, "cuda", timeout_s=300,
+                    args=(cam, pn, GBA_KW, 2))[0],
         cpu=launch(solve_on_rank, 1, "cpu", timeout_s=300, args=(cam, pn, GBA_KW))[0],
         four=launch(solve_on_rank, 4, "cuda", backend="gloo", share_cards=True,
-                    timeout_s=300, args=(cam, pn, GBA_KW)),
+                    timeout_s=300, args=(cam, pn, GBA_KW, 2)),
         n_pts=16384)
 
 
@@ -1274,6 +1363,14 @@ def test_gba_sharded_four_gloo_ranks_share_the_card(cuda, gba_runs):
         np.testing.assert_array_equal(o["Tcw"], four[0]["Tcw"])
     dT, dX, dE = _gba_gaps(four[0], card, gba_runs["n_pts"])
     assert dT <= 1e-4 and dX <= 5e-4 and dE <= 5e-4, (dT, dX, dE)
+
+
+def test_gba_sharded_repeats_to_the_bit(cuda, gba_runs):
+    """Each run above solved twice: at world 1 over NCCL and on each of
+    the 4 gloo ranks, the second solve equal to the first to the bit."""
+    assert gba_runs["card"]["equal"] == [True]
+    assert [o["equal"] for o in gba_runs["four"]] == [[True]] * 4
+    assert gba_runs["card"]["spread"] == [(0.0, 0.0, 0.0)]
 
 
 def test_prefetch_loader_track_stereo_gpu_matches_in_memory(cuda, tmp_path):

@@ -5,7 +5,10 @@ inputs, with the cases of the JAX package's own tests
 `geometry/camera.py`'s `project`, `backproject`, `project_world`,
 `in_image`, `Camera.K` and `Camera.has_distortion`; `ops/stereo.py`'s
 `bilinear_sample` and `masked_median`; `optim/pose_gn.py`'s
-`PointObs.empty`.
+`PointObs.empty`; `ops/match.py`'s `unpack_bits` and
+`hamming_matrix_xor` (with tests/test_ops.py's Hamming cases),
+`ops/pyramid.py`'s `gaussian_kernel1d`, `FrameData.n` and
+`MapState.capacity_pts`.
 
 Each case holds the port to the JAX test's own gate and to the JAX
 function's output: float32 results within 1e-5 (1e-4 where the JAX test
@@ -19,12 +22,22 @@ import torch
 
 from splslam_tpu.geometry import camera as JC
 from splslam_tpu.geometry import se3 as JSE3
+from splslam_tpu.ops import match as JM
+from splslam_tpu.ops import orb as JO
+from splslam_tpu.ops import pyramid as JP
 from splslam_tpu.ops import stereo as JST
 from splslam_tpu.optim import pose_gn as JPG
+from splslam_tpu.slam import frame as JF
+from splslam_tpu.slam import map as JMAP
 from splslam_tpu_torch.geometry import camera as TC
 from splslam_tpu_torch.geometry import se3 as TSE3
+from splslam_tpu_torch.ops import match as TM
+from splslam_tpu_torch.ops import orb as TO
+from splslam_tpu_torch.ops import pyramid as TP
 from splslam_tpu_torch.ops import stereo as TST
 from splslam_tpu_torch.optim import pose_gn as TPG
+from splslam_tpu_torch.slam import frame as TF
+from splslam_tpu_torch.slam import map as TMAP
 
 ATOL = 1e-5
 LOG_ATOL = 1e-4
@@ -210,3 +223,70 @@ def test_point_obs_empty_matches_jax():
         a, b = np.asarray(getattr(j, name)), getattr(t, name).numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, name
         np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def _words(rng, n):
+    """[n, 8] uint32 descriptors and the port's int32 words of their bits."""
+    d = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
+    return d, torch.from_numpy(d.view(np.int32).copy())
+
+
+def test_unpack_bits_matches_jax():
+    d, t = _words(np.random.default_rng(11), 33)
+    j = np.asarray(JM.unpack_bits(jnp.asarray(d)))
+    b = TM.unpack_bits(t)
+    assert b.dtype == torch.uint8 and b.shape == (33, 256)
+    np.testing.assert_array_equal(b.numpy(), j)
+
+
+@pytest.mark.parametrize("case", ["xor_vs_mxu", "self_distance", "mutual_nn"])
+def test_hamming_matrix_xor_matches_jax(case):
+    """tests/test_ops.py TestHamming: the XOR and matmul forms agree (33 x
+    47), a descriptor's distance to itself is 0, and mutual nearest
+    neighbours at distance 0 invert a permutation."""
+    rng = np.random.default_rng(["xor_vs_mxu", "self_distance",
+                                 "mutual_nn"].index(case))
+    n1, n2 = {"xor_vs_mxu": (33, 47), "self_distance": (10, 10),
+              "mutual_nn": (20, 20)}[case]
+    d1, t1 = _words(rng, n1)
+    d2, t2 = (d1, t1) if case != "xor_vs_mxu" else _words(rng, n2)
+    if case == "mutual_nn":
+        perm = rng.permutation(n1)
+        d2, t2 = d1[perm], t1[perm]
+    j = np.asarray(JM.hamming_matrix_xor(jnp.asarray(d1), jnp.asarray(d2)))
+    t = TM.hamming_matrix_xor(t1, t2)
+    assert t.dtype == torch.int32
+    np.testing.assert_array_equal(t.numpy(), j)
+    np.testing.assert_array_equal(t.numpy(), TM.hamming(t1, t2).numpy())
+    if case == "self_distance":
+        assert np.all(np.diag(t.numpy()) == 0)
+    if case == "mutual_nn":
+        ok = torch.ones(n1, dtype=torch.bool)
+        m, _ = TM.nn_match(TM.masked_distances(t, ok, ok), max_dist=0, mutual=True)
+        np.testing.assert_array_equal(m.numpy(), np.argsort(perm))
+
+
+@pytest.mark.parametrize("sigma,radius", [(2.0, 3), (1.2, 2), (3.5, 6)])
+def test_gaussian_kernel1d_matches_jax(sigma, radius):
+    j = np.asarray(JP.gaussian_kernel1d(sigma, radius))
+    t = TP.gaussian_kernel1d(sigma, radius)
+    assert t.dtype == torch.float32 and t.shape == (2 * radius + 1,)
+    np.testing.assert_allclose(t.numpy(), j, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(float(t.sum()), 1.0, rtol=1e-6)
+
+
+def test_frame_n_and_map_capacity_match_jax():
+    n = 37
+    zeros = lambda *s: np.zeros(s, np.float32)
+    jfeat = JO.OrbFeatures(zeros(n, 2), zeros(n), zeros(n), np.zeros(n, np.int32),
+                           zeros(n), np.zeros((n, 8), np.uint32), np.zeros(n, bool),
+                           zeros(n, 256))
+    tfeat = TO.OrbFeatures(*(torch.from_numpy(np.asarray(x)) for x in (
+        zeros(n, 2), zeros(n), zeros(n), np.zeros(n, np.int32), zeros(n),
+        np.zeros((n, 8), np.int32), np.zeros(n, bool))))
+    jf = JF.FrameData(jfeat, zeros(n), zeros(n), None)
+    tf = TF.FrameData(tfeat, torch.zeros(n), torch.zeros(n), None)
+    assert tf.n == jf.n == n
+    jm = JMAP.MapState.empty(300, 20, 8, n, 4)
+    tm = TMAP.MapState.empty(300, 20, 8, n, 4, "cpu")
+    assert tm.capacity_pts == jm.capacity_pts == 300
