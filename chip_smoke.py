@@ -68,9 +68,8 @@ Phases, each fatal on failure:
      its synced ms, device activities and busy share. It runs twice from
      identical copies of the map: every output equal to the bit (a
      gate). The `segment_sum` kernel is held against its plain version on
-     every table the second solve summed (equal to the bit), and on the
-     CG products' camera sum timed beside its plain version, `index_add_`
-     and its bound. Offline correction:
+     every table the second solve and phase 5's local BA summed (see
+     below). Offline correction:
      drift is injected into a copy of phase 7's circuit map
      (tests/test_loop.py's ramp over the post-loop keyframes and the
      landmarks they own), the loop Sim3 re-measured and `_correct` run:
@@ -251,6 +250,14 @@ Phases, each fatal on failure:
 
 The runs of phases 5, 8 and 10 whose path holds a BA count the
 `segment_sum` kernel's launches from 0 and fail if it did not launch.
+Phase 5's local BA (the card's problem solved once more), phase 8's
+second global BA and second `pose_graph_sim3`, and phase 10's second
+global BA with lines record every table their solvers sum; on each, the
+kernel must equal its plain version to the bit in one launch, and each
+is timed on the device (a CUDA graph of 20 calls) with the host's
+enqueue time a call, beside its plain version, `index_add_` and its
+bound. The kernel line carries every table's numbers; its top-level
+ones are the CG products' camera sum's, the most frequent call.
 Prints a JSON line describing each kernel, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is present. Uses no JAX and nothing of the
@@ -259,6 +266,7 @@ JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -398,7 +406,8 @@ def bit_agreement(d1, d2) -> float:
 
 
 SEG_RUNS: list = []   # (path, segment_sum launches) of each main-path run read
-SEG_KERNEL: dict = {}  # the segment_sum kernel's check and times (phase 8)
+SEG_TABLES: list = []  # the segment_sum kernel's check and times, a table each
+SEG_KERNEL: dict = {}  # the CG products' camera sum's (phase 8): the kernel line
 
 
 def seg_reset() -> None:
@@ -438,41 +447,91 @@ def segsum_bound(seg, width: int):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_segsum(recorded: dict, card: str) -> None:
-    """The segment_sum kernel against its plain version on every table a
-    global BA summed (`recorded`: (cells, width) -> (segments, rows)),
-    equal to the bit; the CG products' camera sum (the most frequent
-    call) timed beside its plain version, `index_add_` and its bound."""
+@contextlib.contextmanager
+def seg_recording(recorded: dict, solve: str):
+    """Inside, every table that `optim/ba.py` and `optim/sim3.py` sum is
+    kept in `recorded` (solve, cells, width) -> (segments, a copy of the
+    rows), the first of each key; the sums themselves run as before."""
+    from splslam_tpu_torch.optim import ba as BA
+    from splslam_tpu_torch.optim import sim3 as S3
+
+    runs = [(m, m.segment_sum) for m in (BA, S3)]
+
+    def recording(run):
+        def call(seg, rows):
+            recorded.setdefault((solve, seg.n_cells, rows.shape[1]), (seg, rows.clone()))
+            return run(seg, rows)
+        return call
+
+    for m, run in runs:
+        m.segment_sum = recording(run)
+    try:
+        yield recorded
+    finally:
+        for m, run in runs:
+            m.segment_sum = run
+
+
+def enqueue_us(fn, calls: int = 50) -> float:
+    """Host microseconds a call of fn(), the device left to catch up after."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def segsum_numbers(seg, rows, calls: int = 50) -> dict:
+    """One table's check and times on the card: the kernel against its
+    plain version (equal to the bit: only a zero's sign may differ; max abs
+    err; launches of one sum), the kernel's device ms (a CUDA graph of 20
+    calls), the host's enqueue us a call, the plain version's and
+    `index_add_`'s ms (atomics: not repeatable; CUDA events, median of
+    10), and the bound from this table's bytes and operations."""
     import torch
 
     from splslam_tpu_torch.ops import segsum as SS
 
-    worst = 0.0
-    for (n, w), (seg, rows) in sorted(recorded.items()):
-        k = SS.segment_sum(seg, rows)
-        ref = SS.segment_sum_reference(seg, rows)
-        torch.cuda.synchronize()
-        err = float((k - ref).abs().max()) if k.numel() else 0.0
-        worst = max(worst, err)
-        print(f"segment_sum vs plain, {rows.shape[0]} rows into {n} cells x {w} "
-              f"(lanes a cell {seg.group}): equal {torch.equal(k, ref)}, max abs "
-              f"err {err:.3e}")
-        if not torch.equal(k, ref):
-            raise SystemExit("chip_smoke: segment_sum disagrees with its plain version")
-    (n, w), (seg, rows) = min(((key, v) for key, v in recorded.items() if key[1] == 6),
-                              key=lambda kv: kv[0][0])
-    k_ms = graph_ms(lambda: SS.segment_sum(seg, rows))
-    p_ms = cuda_ms(lambda: SS.segment_sum_reference(seg, rows))
-    lib_ms = cuda_ms(lambda: torch.zeros((n + 1, w), device=rows.device)
-                     .index_add_(0, seg.cell, rows))
+    n, w = seg.n_cells, rows.shape[1]
+    before = SS.segment_sum.launches
+    k = SS.segment_sum(seg, rows)
+    ref = SS.segment_sum_reference(seg, rows)
+    torch.cuda.synchronize()
+    launches = SS.segment_sum.launches - before
     bound_ms, bound_by = segsum_bound(seg, w)
-    print(f"segment_sum, {rows.shape[0]} rows into {n} cameras x {w} (a CG "
-          f"product's sum): kernel {k_ms:.5f} ms on the device (graph of 20), plain "
-          f"{p_ms:.4f} ms, index_add_ {lib_ms:.5f} ms (CUDA events, median of 20); "
-          f"bound {bound_ms:.5f} ms by {bound_by}, on {card}")
-    SEG_KERNEL.update(max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, library_ms=lib_ms,
-                      shape=[int(rows.shape[0]), int(n), int(w)])
+    return dict(
+        rows=int(rows.shape[0]), kept=int(seg.start[-1]), cells=int(n), width=int(w),
+        equal=torch.equal(k, ref), launches=launches,
+        max_abs_err=float((k - ref).abs().max()) if k.numel() else 0.0,
+        ms=graph_ms(lambda: SS.segment_sum(seg, rows)),
+        call_us=enqueue_us(lambda: SS.segment_sum(seg, rows), calls),
+        plain_ms=cuda_ms(lambda: SS.segment_sum_reference(seg, rows), reps=10),
+        library_ms=cuda_ms(lambda: torch.zeros((n + 1, w), device=rows.device)
+                           .index_add_(0, seg.cell, rows), reps=10),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_segsum(recorded: dict, card: str) -> None:
+    """`segsum_numbers` on every table recorded (`seg_recording`): each
+    must equal its plain version to the bit in one launch."""
+    for (solve, n, w), (seg, rows) in recorded.items():
+        t = dict(solve=solve, **segsum_numbers(seg, rows))
+        print(f"segment_sum, {solve}: {t['rows']} rows ({t['kept']} kept) into {n} "
+              f"cells x {w}: equal to plain {t['equal']}, max abs err "
+              f"{t['max_abs_err']:.3e}, {t['launches']} launch; kernel {t['ms']:.5f} ms "
+              f"on the device (graph of 20), {t['call_us']:.1f} us enqueue a call, plain "
+              f"{t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.5f} ms; bound "
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bound_ms'] / t['ms']:.3f} "
+              f"of it), on {card}")
+        SEG_TABLES.append(t)
+        if not t["equal"] or t["launches"] != 1:
+            raise SystemExit(f"chip_smoke: segment_sum, {solve}, {n} cells x {w}: "
+                             f"equal {t['equal']}, {t['launches']} launches a sum")
 
 
 def main() -> None:
@@ -643,7 +702,9 @@ def main() -> None:
                          "segment sums (also splslam_tpu/optim/sim3.py:290)",
         "launches": sum(n for _, n in SEG_RUNS),
         "launches_by_path": dict(SEG_RUNS),
+        "max_abs_err": max(t["max_abs_err"] for t in SEG_TABLES),
         **SEG_KERNEL,
+        "tables": SEG_TABLES,
         "library_call": "Tensor.index_add_",
     }]}))
     print(card)
@@ -769,6 +830,9 @@ def mapping_phase(st, frames, gt, card):
     agree = float((rg.e_inlier.cpu() == rc.e_inlier)[pc.e_ok].float().mean())
     solve_ms = cuda_ms(lambda: MO.ba_solve(sysm.cam, pg, n_free=MO.N_WINDOW),
                        reps=5, warmup=1)
+    tables: dict = {}
+    with seg_recording(tables, "phase 5 local BA"):
+        MO.ba_solve(sysm.cam, pg, n_free=MO.N_WINDOW)
     print(f"mapping step card vs CPU (kf {kf}): integer tables differing "
           f"{int_diff}; BA edges {int(pc.e_ok.sum())}, window landmarks "
           f"{int(pc.lm_ok.sum())}, pose max abs err {pose_err:.3e}, landmark "
@@ -788,7 +852,7 @@ def mapping_phase(st, frames, gt, card):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: mapping step card vs CPU failed: {failed}")
-    global_ba_at_full_width(sysm, gt, card)
+    global_ba_at_full_width(sysm, gt, card, tables)
     return launches, float(np.median(times[10:]))
 
 
@@ -831,14 +895,14 @@ GBA_OUTPUTS = ("Tcw", "xyz", "e_inlier", "chi2", "total_chi2", "n_guarded",
                "n_state_revert", "n_lm_singular", "map Tcw", "map points", "map lines")
 
 
-def global_ba_at_full_width(sysm, gt, card):
+def global_ba_at_full_width(sysm, gt, card, tables: dict):
     """Phase 8, first part: global BA over phase 5's final map, twice from
     identical copies (every output equal to the bit), the segment_sum
-    kernel held against its plain version on the solve's own tables."""
+    kernel held against its plain version on the solve's own tables and
+    on phase 5's local BA's (`tables`)."""
     import torch
 
     from splslam_tpu_torch.io.synthetic import ate_rmse
-    from splslam_tpu_torch.optim import ba as BA
     from splslam_tpu_torch.slam.loop_closing import _k_bucket
 
     lc = sysm.loop_closer
@@ -859,18 +923,8 @@ def global_ba_at_full_width(sysm, gt, card):
     res, ms, seg_n, out1 = solve("phase 8 global BA at full width")
     ate1 = ate_rmse(sysm.poses_reconstructed(), gt)
     _restore(sysm, snap)
-    recorded = {}
-    run = BA.segment_sum
-
-    def recording(seg, rows):
-        recorded.setdefault((seg.n_cells, rows.shape[1]), (seg, rows.clone()))
-        return run(seg, rows)
-
-    BA.segment_sum = recording
-    try:
+    with seg_recording(tables, "phase 8 global BA"):
         _, ms2, _, out2 = solve("phase 8 global BA at full width, again")
-    finally:
-        BA.segment_sum = run
     n_dev, dev_ms, _ = device_kernels(lambda: lc.run_global_ba(rounds=1))
     ate2 = ate_rmse(sysm.poses_reconstructed(), gt)
     print(f"global BA at full width: {sysm.n_kfs} keyframes (bucket {K}), "
@@ -883,7 +937,12 @@ def global_ba_at_full_width(sysm, gt, card):
           f"{seg_n} segment_sum launches; a third solve under torch.profiler: "
           f"{n_dev} device activities, {dev_ms:.3f} ms device time (busy "
           f"{dev_ms / ms:.3f} of the synced ms) on {card}")
-    check_segsum(recorded, card)
+    check_segsum(tables, card)
+    cg = min((t for t in SEG_TABLES if t["solve"] == "phase 8 global BA"
+              and t["width"] == 6), key=lambda t: t["rows"])
+    SEG_KERNEL.update({k: cg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "call_us")},
+                      shape=[cg["rows"], cg["cells"], cg["width"]])
     first = _first_difference(GBA_OUTPUTS, out1, out2)
     bad = failed_gates("phase 8 global BA, two runs from identical copies", [
         ("first output that differs", first, "==", "none")])
@@ -1198,7 +1257,11 @@ def correction_phase(base, scene, card, device="cuda"):
     n_valid_after = int(base.map.pts.valid.sum())
     # pose_graph_sim3 again from copies of the same inputs
     (args, kw, out1), = pg_calls
-    out2 = run_pg(*[_clone(x) for x in args], **kw)
+    pg_tables: dict = {}
+    with seg_recording(pg_tables, "phase 8 pose graph"):
+        out2 = run_pg(*[_clone(x) for x in args], **kw)
+    if torch.device(device).type == "cuda":
+        check_segsum(pg_tables, card)
     pg_first = _first_difference(("s", "R", "t", "n_guarded"), out1, out2)
     print(f"offline correction of loop ({kf}, {cand}), {n} keyframes: ATE "
           f"{ate0:.5f} -> drifted {ate_drift:.5f} -> corrected {ate_corr:.5f}; "
@@ -1635,19 +1698,23 @@ def line_backend_phase(card, phase9_ln_in, device="cuda", view=40):
     lc = sysm.loop_closer
     g0 = lc.n_guarded
     snap = _snapshot(sysm)
-    gba = []
+    gba, line_tables = [], {}
     for path in ("phase 10 global BA with lines", "phase 10 global BA with lines, again"):
         if gba:
             _restore(sysm, snap)
         seg_reset()
         _sync(device)
         t0 = time.perf_counter()
-        res = lc.run_global_ba(rounds=1, with_lines=True)
+        with (seg_recording(line_tables, "phase 10 global BA with lines") if gba
+              else contextlib.nullcontext()):
+            res = lc.run_global_ba(rounds=1, with_lines=True)
         _sync(device)
         gba.append(((time.perf_counter() - t0) * 1e3,
                     seg_read(path, torch.device(device).type == "cuda"),
                     _gba_outputs(res, sysm)))
     (gba_ms, seg_n, out1), (gba_ms2, _, out2) = gba
+    if torch.device(device).type == "cuda":
+        check_segsum(line_tables, card)
     finite = bool(torch.isfinite(sysm.map.kfs.Tcw).all()
                   and torch.isfinite(sysm.map.lns.xyz[lv]).all())
     ate_gba = ate_rmse(sysm.poses_reconstructed(), gt[idx], align_scale=True)

@@ -4,6 +4,7 @@ line edges; with `--solves`, the run-to-run spread, synced ms and device
 activities of each global solve at chip_smoke.py's sizes.
 
     python3 scripts/port_ba_spread.py [--root DIR] [--reps 4] [--gba-lines | --solves]
+                                      [--kernel-solves]
 
 Imports `splslam_tpu_torch` from DIR (default: the checkout that holds
 this script), so that two trees can be compared in turns on one card.
@@ -40,10 +41,14 @@ synced ms of each repeat, the device activities and device ms of one
 more under torch.profiler (chip_smoke's `device_kernels`), and for each
 repeat "equal" or the first output that differs and each output's
 largest difference to the first (for a global BA also the landmarks'
-99th percentile). Where the tree has `ops/segsum.py`, the full-width
+99th percentile), and the `segment_sum` launches a solve. The full-width
 global BA runs once more with its sums by the kernel's plain version
 (the pairwise tree in PyTorch ops), the candidate the kernel was chosen
-over.
+over. One local BA (bench_torch.py's mapping row
+`kitti_local_ba_ms_per_keyframe`: `bench.mapping.Stages.local_ba` on a
+fresh copy of the synthetic map) comes first. With `--kernel-solves`,
+only local BA, the global BA at full width, `pose_graph_sim3` and
+`_correct` run.
 """
 
 from __future__ import annotations
@@ -63,6 +68,9 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--gba-lines", action="store_true")
     mode.add_argument("--solves", action="store_true")
+    ap.add_argument("--kernel-solves", action="store_true",
+                    help="with --solves: only local BA, the global BA at full width, "
+                         "pose_graph_sim3 and _correct")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -205,8 +213,11 @@ def repeat(name, args, card, prepare, solve, outputs, names, gap=None) -> None:
     import torch
 
 
+    from splslam_tpu_torch.ops import segsum as SS
+
     CS = chip_smoke()
     ms, outs = [], []
+    n0 = SS.segment_sum.launches
     for _ in range(args.reps):
         prepare()
         torch.cuda.synchronize()
@@ -215,6 +226,7 @@ def repeat(name, args, card, prepare, solve, outputs, names, gap=None) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(tuple(x.clone() for x in outputs(res)))
+    launches = (SS.segment_sum.launches - n0) / args.reps
     prepare()
     n_dev, dev_ms, _ = CS.device_kernels(solve)
     diffs = [first_difference(names, o, outs[0]) for o in outs[1:]]
@@ -222,7 +234,8 @@ def repeat(name, args, card, prepare, solve, outputs, names, gap=None) -> None:
     largest = [", ".join(f"{n} {largest_difference(x, y):.3e}"
                          for n, x, y in zip(names, o, outs[0])) for o in outs[1:]]
     print(f"{args.root} {name}: synced ms {[round(x, 2) for x in ms]} (median "
-          f"{np.median(ms):.2f}); one more under torch.profiler: {n_dev} device "
+          f"{np.median(ms):.2f}); {launches:g} segment_sum launches a solve; one "
+          f"more under torch.profiler: {n_dev} device "
           f"activities, {dev_ms:.3f} ms device time; repeats vs the first: {diffs}"
           f"{'; ' + extra if extra else ''}; largest differences: {largest}; "
           f"on {card}", flush=True)
@@ -278,11 +291,20 @@ def solves(args, make_stereo_sequence, TS) -> None:
     snap = CS._snapshot(sysm)
     lc = sysm.loop_closer
     print(f"{args.root}: phase 5's map, {sysm.n_kfs} keyframes", flush=True)
+    # one local BA: bench_torch.py's mapping row kitti_local_ba_ms_per_keyframe
+    from splslam_tpu_torch.bench import mapping as BM
+    stages = BM.Stages(BM.FULL, "cuda")
+    stages.local_ba(stages.copy_bucketed())
+    held = {}
+    repeat("local BA (bench mapping's Local BA / KF)", args, card,
+           lambda: held.update(m=stages.copy_bucketed()),
+           lambda: stages.local_ba(held["m"]),
+           lambda r: (r.Tcw, r.xyz, r.e_inlier, r.chi2), ("Tcw", "xyz", "e_inlier", "chi2"))
     repeat("run_global_ba at full width", args, card, lambda: CS._restore(sysm, snap),
            lambda: lc.run_global_ba(rounds=1),
            lambda res: gba_outputs(res, sysm.map), gba_names, gba_gap)
     from splslam_tpu_torch.optim import ba as BA
-    if hasattr(BA, "segment_sum"):
+    if not args.kernel_solves:
         # the torch candidate: the same sums by the plain version's tree
         from splslam_tpu_torch.ops.segsum import segment_sum_reference
         kernel, BA.segment_sum = BA.segment_sum, segment_sum_reference
@@ -329,6 +351,8 @@ def solves(args, make_stereo_sequence, TS) -> None:
                       base.map.lns.xyz),
            ("map Tcw", "map points", "point validity", "map lines"))
 
+    if args.kernel_solves:
+        return
     # run_global_ba with line edges on the --gba-lines map
     lm = line_map(make_stereo_sequence, TS)
     holder = {}

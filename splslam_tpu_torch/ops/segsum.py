@@ -20,11 +20,15 @@ tests run it). The order here:
 
 `Segments` is built once per solve, outside the solver's loops (the edge
 table does not change inside a solve; weights and masks do), and every
-sum in the loops is then `segment_sum(seg, rows)`: two launches of the
-kernel for a CUDA tensor (tiles of 256 ranks, then each cell over its
-tiles: the same tree), the plain version for a CPU tensor; there is no
-fallback from one to the other. `segment_sum.launches` counts kernel
-launches.
+sum in the loops is then `segment_sum(seg, rows)`: one launch of the
+kernel for a CUDA tensor, the plain version for a CPU tensor; there is
+no fallback from one to the other. `segment_sum.launches` counts kernel
+launches. The kernel cuts each cell's ranks into chunks of 32 (aligned
+subtrees of the tree), lets a warp sum the chunks that start in a window
+of 32 sorted rows, and adds a long cell's chunk sums 64 at a time by the
+tree's upper levels, each group by the warp that finishes its last
+member (`Segments` holds the row records, the scratch for the sums and
+the tickets; the kernel's source says how it runs).
 
 Float scatter-adds of the port that stay `index_add_`, because their sums
 are exact in any order, are listed in `tests/test_torch_segsum.py`.
@@ -33,7 +37,6 @@ are exact in any order, are listed in `tests/test_torch_segsum.py`.
 from __future__ import annotations
 
 import ctypes
-import math
 from pathlib import Path
 
 import torch
@@ -41,16 +44,9 @@ import torch
 from splslam_tpu_torch.ops.nvcc import NVCC_FLAGS, build_library
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "segment_sum.cu"
-MIN_GROUP, MAX_GROUP = 32, 1024   # lanes a cell (csrc/segment_sum.cu)
-TILE = 256    # rows of a tile, the kernel's first pass (a power of two)
-TILE_LANES = 32   # lanes a tile: 8 rows a lane
-
-
-def _lanes(rows: int, cells: int) -> int:
-    """The kernel's lanes a cell: about 8 rows a lane at the mean."""
-    mean = rows / max(cells, 1)
-    return min(MAX_GROUP, max(MIN_GROUP, 1 << max(0, math.ceil(
-        math.log2(max(mean / 8.0, 1.0))))))
+CHUNK = 32          # ranks a chunk (an aligned subtree), and sorted rows a
+                    # warp task's window (csrc/segment_sum.cu kChunk)
+SCRATCH_COLS = 64   # columns the chunk-sum scratch holds a chunk at first
 
 
 class Segments:
@@ -62,12 +58,22 @@ class Segments:
              copy for the kernel);
     start:   [n_cells + 1] int32, the first sorted row of each cell
              (start[n_cells]: the first dropped row);
-    tiles:   the kernel's first pass: `tile_start` [n_tiles + 1] int32,
-             the first sorted row of each tile (the ranks [jT, (j+1)T) of
-             one cell, T = TILE; tiles past the last are empty), and
-             `cell_tiles` [n_cells + 1] int32, each cell's first tile.
-             n_tiles = E // T + n_cells bounds the tiles of any table of E
-             rows, so nothing is read back to the host;
+    the kernel's tables, each sized from E and n_cells alone, so that
+    nothing is read back to the host:
+    records: [E, 4] int32, the kernel's row table. A chunk is the ranks
+             [32j, 32j + 32) of one cell; the kept rows, sorted, are the
+             chunks one after another, numbered in that order. A sorted
+             row where a chunk starts holds (cell, chunk number, the
+             cell's first chunk, the cell's chunk count x 64 + the
+             chunk's rows); any other row (-, -1, -, -). Warp task w
+             takes the chunks that start in sorted rows [32w, 32w + 32):
+             n_tasks = ceil(E / 32). n_chunks = min(E, E // 32 + n_cells)
+             bounds the chunks of any table of E rows;
+    partials: f32 scratch for the sums of long cells' chunks and of their
+             groups of 64, [n_chunks x 64] floats (a wider table makes the
+             wrapper allocate it once more); tickets: [n_chunks] int32,
+             zero between launches: a group's sums done so far in a launch
+             (a group's ticket sits at its first chunk plus its level);
     max_rows: a bound on the rows of one cell that deepens the plain
              version's tree (the kernel needs none); a deeper tree only
              adds +0.0 to lone partial sums."""
@@ -86,17 +92,23 @@ class Segments:
         ).to(torch.int32)
         self.max_rows = max_rows
         self.order32 = self.order.to(torch.int32)
+        dev = cell.device
         start = self.start.long()
-        ntile = (start[1:] - start[:-1] + TILE - 1) // TILE
-        cell_tiles = torch.zeros(n_cells + 1, dtype=torch.long, device=cell.device)
-        cell_tiles[1:] = torch.cumsum(ntile, 0)
-        self.n_tiles = self.rows // TILE + n_cells
-        t = torch.arange(self.n_tiles + 1, device=cell.device)
-        c = torch.searchsorted(cell_tiles, t, right=True) - 1   # n_cells: past the last
-        first = start[c] + (t - cell_tiles[c]) * TILE
-        self.tile_start = torch.where(c < n_cells, first, start[-1]).to(torch.int32)
-        self.cell_tiles = cell_tiles.to(torch.int32)
-        self.group = _lanes(self.n_tiles, n_cells)
+        zero = torch.zeros(1, dtype=torch.long, device=dev)
+        size = torch.cat([start[1:] - start[:-1], zero])     # 0 past the last
+        per_cell = (size + CHUNK - 1) // CHUNK
+        first = torch.cat([zero, torch.cumsum(per_cell, 0)[:-1]])
+        sc = self.sorted                                     # n_cells: dropped
+        rank = torch.arange(self.rows, device=dev) - start[sc]
+        head = (sc < n_cells) & (rank % CHUNK == 0)
+        self.records = torch.stack([
+            sc, torch.where(head, first[sc] + rank // CHUNK, -1), first[sc],
+            per_cell[sc] * 64 + torch.clamp(size[sc] - rank, max=CHUNK)],
+            dim=1).to(torch.int32)
+        self.n_chunks = min(self.rows, self.rows // CHUNK + n_cells)
+        self.n_tasks = -(-self.rows // CHUNK)
+        self.partials = torch.empty(self.n_chunks * SCRATCH_COLS, device=dev)
+        self.tickets = torch.zeros(self.n_chunks, dtype=torch.int32, device=dev)
         self._tree = None
 
     def tree(self):
@@ -170,10 +182,9 @@ def build() -> _Library:
     if _LIB is not None:
         return _LIB
     lib, so, log = build_library(_SOURCE, NVCC_FLAGS)
-    lib.segment_sum_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    ptr, n = ctypes.c_void_p, ctypes.c_int
+    lib.segment_sum_launch.argtypes = [ptr, n, n, ptr, ptr, ptr, n, n,
+                                       ptr, ptr, ptr, ptr]
     lib.segment_sum_launch.restype = ctypes.c_int
     lib.segment_sum_error_string.argtypes = [ctypes.c_int]
     lib.segment_sum_error_string.restype = ctypes.c_char_p
@@ -182,30 +193,31 @@ def build() -> _Library:
 
 
 def _launch(seg: Segments, rows: torch.Tensor) -> torch.Tensor:
-    """Two launches: the tiles' sums, then each cell's over its tiles."""
-    if rows.shape[1] == 0 or not rows.is_contiguous():
+    """One launch: every chunk, every long cell's groups and the empty
+    cells' zeros."""
+    W = rows.shape[1]
+    if W == 0 or not rows.is_contiguous():
         raise ValueError("segment_sum needs a contiguous table of >= 1 column")
+    if seg.n_cells * W >= 2 ** 31:
+        raise ValueError("segment_sum: n_cells x W must stay below 2^31")
     lib = build()
     dev = rows.device
-    W = rows.shape[1]
     with torch.cuda.device(dev):
         out = torch.empty((seg.n_cells, W), dtype=torch.float32, device=dev)
         if seg.n_cells == 0:
             return out
-        tiles = torch.empty((seg.n_tiles, W), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for src, order, start, n, group, dst in (
-                (rows, seg.order32.data_ptr(), seg.tile_start, seg.n_tiles,
-                 TILE_LANES, tiles),
-                (tiles, None, seg.cell_tiles, seg.n_cells, seg.group, out)):
-            code = lib.lib.segment_sum_launch(
-                src.data_ptr(), W, order, start.data_ptr(), n, group,
-                dst.data_ptr(), stream)
-            if code != 0:
-                msg = lib.lib.segment_sum_error_string(code).decode()
-                raise RuntimeError(f"segment_sum launch failed: CUDA error "
-                                   f"{code} ({msg})")
-            segment_sum.launches += 1
+        if seg.partials.numel() < seg.n_chunks * W:
+            seg.partials = torch.empty(seg.n_chunks * W, device=dev)
+        code = lib.lib.segment_sum_launch(
+            rows.data_ptr(), W, seg.rows, seg.order32.data_ptr(),
+            seg.records.data_ptr(), seg.start.data_ptr(), seg.n_tasks, seg.n_cells,
+            seg.partials.data_ptr(), seg.tickets.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if code != 0:
+            msg = lib.lib.segment_sum_error_string(code).decode()
+            raise RuntimeError(f"segment_sum launch failed: CUDA error "
+                               f"{code} ({msg})")
+        segment_sum.launches += 1
     return out
 
 

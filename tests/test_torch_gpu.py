@@ -546,15 +546,12 @@ SEGSUM_SHAPES = {   # rows, cells, width: the solvers' sums on the card
     "pose_graph_blocks": (4 * 600, 64 * 64, 49),
     "local_ba_cells": (20000, 9 * 4096, 54),
     "one_cell_and_sentinels": (100000, 5, 2),
+    "skewed_landmark_0": (64000, 16384, 3),   # 50,000 rows in cell 0
 }
 
 
-@pytest.mark.parametrize("shape", list(SEGSUM_SHAPES))
-def test_segment_sum_kernel_matches_plain(cuda, shape):
-    """Kernel and plain version equal at the solvers' shapes, and the
-    kernel equal to itself on a second launch."""
-    from splslam_tpu_torch.ops import segsum as SS
-
+def segsum_table(shape, device):
+    """(cell [E], rows [E, W]) of a `SEGSUM_SHAPES` entry, from a seed."""
     E, n, W = SEGSUM_SHAPES[shape]
     g = torch.Generator().manual_seed(E + n + W)
     if shape == "one_cell_and_sentinels":
@@ -563,21 +560,57 @@ def test_segment_sum_kernel_matches_plain(cuda, shape):
         cell[::11] = -1                   # below 0: dropped
     else:
         cell = torch.randint(0, n + 1, (E,), generator=g)
+        if shape == "skewed_landmark_0":  # a global BA's unobserved slots
+            cell[torch.randperm(E, generator=g)[:50000]] = 0
     rows = torch.randn((E, W), generator=g) * 10.0 ** torch.randint(
         -3, 4, (E, 1), generator=g)
-    seg = SS.Segments(cell.to(cuda), n)
+    return cell.to(device), rows.to(device)
+
+
+@pytest.mark.parametrize("shape", list(SEGSUM_SHAPES))
+def test_segment_sum_kernel_matches_plain(cuda, shape):
+    """Kernel and plain version equal at the solvers' shapes, and the
+    kernel equal to itself on a second launch (its tickets reset)."""
+    from splslam_tpu_torch.ops import segsum as SS
+
+    cell, rows = segsum_table(shape, cuda)
+    n = SEGSUM_SHAPES[shape][1]
+    seg = SS.Segments(cell, n)
     before = SS.segment_sum.launches
-    a = SS.segment_sum(seg, rows.to(cuda))
-    b = SS.segment_sum(seg, rows.to(cuda))
-    ref = SS.segment_sum_reference(seg, rows.to(cuda))
+    a = SS.segment_sum(seg, rows)
+    b = SS.segment_sum(seg, rows)
+    ref = SS.segment_sum_reference(seg, rows)
     torch.cuda.synchronize()
-    assert SS.segment_sum.launches == before + 4      # two launches a sum
+    assert SS.segment_sum.launches == before + 2      # one launch a sum
     assert torch.equal(a, b) and torch.equal(a, ref)
-    assert torch.equal(ref.cpu(), SS.segment_sum(SS.Segments(cell, n), rows))
+    assert not seg.tickets.any()
+    assert torch.equal(ref.cpu(), SS.segment_sum(SS.Segments(cell.cpu(), n), rows.cpu()))
     with pytest.raises(ValueError):
-        SS.segment_sum(seg, rows.to(cuda).double())
+        SS.segment_sum(seg, rows.double())
     with pytest.raises(ValueError):
-        SS.segment_sum(seg, rows.to(cuda).repeat(1, 2)[:, ::2])
+        SS.segment_sum(seg, rows.repeat(1, 2)[:, ::2])
+
+
+def test_segment_sum_kernel_reuses_its_scratch_across_widths(cuda):
+    """One `Segments` summing tables of 6, 42, 70 (past the scratch's 64
+    columns: the wrapper grows it once) and 6 columns one after another,
+    as a CG solve sums its camera blocks and products: each equal to the
+    plain version, the tickets back at zero after every launch."""
+    from splslam_tpu_torch.ops import segsum as SS
+
+    g = torch.Generator().manual_seed(5)
+    E, n = 64000, 32
+    cell = torch.randint(0, n + 1, (E,), generator=g)
+    cell[:20000] = 7                      # one long cell beside the others
+    seg = SS.Segments(cell.to(cuda), n)
+    scratch = seg.partials.numel()
+    for W in (6, 42, 70, 6):
+        rows = torch.randn((E, W), generator=g).to(cuda)
+        k = SS.segment_sum(seg, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(k, SS.segment_sum_reference(seg, rows)), W
+        assert not seg.tickets.any(), W
+    assert seg.partials.numel() == seg.n_chunks * 70 > scratch
 
 
 def _equal(a, b) -> bool:

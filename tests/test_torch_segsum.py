@@ -6,11 +6,13 @@
   cells, dropped rows (the sentinel index n_cells, and indices below 0 or
   past it), one cell that holds every row, a `max_rows` bound that is a
   power of two, one and many columns.
-- The kernel's association (`csrc/segment_sum.cu`: B-aligned chunks
-  summed serially by a stack, then the lanes' tree) emulated in numpy for
-  every lane count it takes, against the same loop; and its two passes
-  (tiles of 256 ranks, then each cell over its tiles) on the tile arrays
-  `Segments` prepares, against the plain version.
+- The kernel's schedule (`csrc/segment_sum.cu`: chunks of 32 ranks, a
+  warp for the chunks that start in each window of 32 sorted rows, the
+  tree's levels over pieces of whole chunks, a long cell's chunk sums
+  added 64 at a time up the tree) emulated in numpy on the tables `Segments` builds, against the
+  plain version and the loop: at chunk edges, sparse and skewed tables,
+  sentinels, no kept row, and every width the solvers sum; the tables
+  built on the meta device (no host read) at sizes from E and n_cells.
 - `ba_solve` and `ba_solve_arbitrated` give the bits they gave with the
   cell sums they had before the module (a copy of them below).
 - With `Tensor.index_add_` made to fail on a floating source,
@@ -142,100 +144,180 @@ def test_segment_sum_is_the_specified_order(name):
     np.testing.assert_allclose(got, ref64[:n], atol=1e-5 * scale)
 
 
-def _kernel_pass_np(vals: np.ndarray, group: int) -> np.ndarray:
-    """One pass of csrc/segment_sum.cu on one cell's rows [n, W]: lane j
-    of `group` sums the ranks [jB, (j+1)B) with a stack (element k merges
-    with the top once for each trailing 1 bit of k; the stack folds from
-    its top), then lane j takes lane j + d's sum at level d where lane j
-    is a multiple of 2d and lane j + d's chunk holds a rank."""
-    n = len(vals)
-    B = 1
-    while B * group < n:
-        B *= 2
-    part = []
-    for j in range(group):
-        stack = []
-        for k in range(max(0, min(B, n - j * B))):
-            v = vals[j * B + k].astype(np.float32)
-            b = k
-            while b & 1:
-                v = (stack.pop() + v).astype(np.float32)
-                b >>= 1
-            stack.append(v)
-        acc = stack.pop() if stack else np.zeros(vals.shape[1], np.float32)
-        while stack:
-            acc = (stack.pop() + acc).astype(np.float32)
-        part.append(acc)
+def _tree_rows_np(buf: np.ndarray) -> np.ndarray:
+    """The tree over the rows of `buf` [m, W] (float32), into row 0."""
+    buf = buf.copy()
     d = 1
-    while d < group:
-        for j in range(0, group, 2 * d):
-            if (j + d) * B < n:
-                part[j] = (part[j] + part[j + d]).astype(np.float32)
+    while d < buf.shape[0]:
+        r = np.arange(0, buf.shape[0] - d, 2 * d)
+        buf[r] = buf[r] + buf[r + d]
         d *= 2
-    return part[0]
+    return buf[0]
 
 
-def _two_passes_np(seg, rows: np.ndarray) -> np.ndarray:
-    """The wrapper's two launches on CUDA, from `seg`'s own tile arrays:
-    each tile's rows (in sorted order) in 32 lanes, then each cell's tile
-    sums in `seg.group` lanes."""
-    order = seg.order.numpy()
-    ts, ct = seg.tile_start.numpy(), seg.cell_tiles.numpy()
-    tiles = np.stack([_kernel_pass_np(rows[order[ts[t]:ts[t + 1]]], SS.TILE_LANES)
-                      for t in range(seg.n_tiles)])
-    return np.stack([_kernel_pass_np(tiles[ct[c]:ct[c + 1]], seg.group)
-                     for c in range(seg.n_cells)])
+def _climb_np(parts: np.ndarray) -> np.ndarray:
+    """The upper levels of one cell's tree over its chunk sums [n, W]
+    (rank order): each aligned group of 64 sums added as the kernel adds
+    it (each half of 32 by the tree, then the halves), then each group of
+    64 group sums, up to one."""
+    while parts.shape[0] > 1:
+        sums = []
+        for g in range(0, parts.shape[0], 64):
+            halves = [_tree_rows_np(parts[h:min(h + 32, g + 64)])
+                      for h in range(g, min(g + 64, parts.shape[0]), 32)]
+            sums.append(halves[0] if len(halves) == 1 else halves[0] + halves[1])
+        parts = np.stack(sums)
+    return parts[0]
 
 
-@pytest.mark.parametrize("group", [32, 256, 1024])
-def test_kernel_association_is_the_specified_order(group):
-    rng = np.random.default_rng(group)
-    for n in [0, 1, 2, 3, 31, 33, 100, group - 1, group, group + 1, 3 * group + 5,
-              5000]:
-        vals = (rng.normal(size=(n, 2))
-                * 10.0 ** rng.integers(-4, 5, (n, 1))).astype(np.float32)
-        depth = math.ceil(math.log2(n)) if n > 1 else 0
-        # equal as values: the tree may add +0.0 where the kernel does not
-        np.testing.assert_array_equal(_kernel_pass_np(vals, group),
-                                      _tree_np(vals, depth), err_msg=f"n={n}")
+def _kernel_np(seg, rows: np.ndarray) -> np.ndarray:
+    """csrc/segment_sum.cu's schedule in numpy float32, on `seg`'s own
+    row records: warp task w takes the chunks that start in sorted rows
+    [32w, 32w + 32), in pieces of whole chunks of at most 32 rows; the
+    tree's levels run over each piece's rows, a row at rank q of a chunk
+    of m rows taking row q + d where q is a multiple of 2d and q + d < m;
+    a one-chunk cell is its chunk's sum, a longer one its chunk sums
+    added 64 at a time up the tree. Checks the tables on the way."""
+    order, rec = seg.order32.numpy(), seg.records.numpy()
+    start = seg.start.numpy()
+    # the chunks, from the cell starts alone, against the row records
+    per_cell = -(-np.diff(start) // 32)
+    cell_chunk = np.concatenate([[0], np.cumsum(per_cell)])
+    heads = np.nonzero(rec[:, 1] >= 0)[0]
+    chunk_cell = rec[heads, 0]
+    length = rec[heads, 3] & 63
+    np.testing.assert_array_equal(rec[heads, 1], np.arange(heads.shape[0]))
+    np.testing.assert_array_equal(rec[heads, 2], cell_chunk[chunk_cell])
+    np.testing.assert_array_equal(rec[heads, 3] >> 6, per_cell[chunk_cell])
+    cs_all = np.append(heads, start[-1])
+    np.testing.assert_array_equal(np.diff(cs_all), length)   # chunks tile the kept rows
+    assert heads.shape[0] == cell_chunk[-1] <= seg.n_chunks
+    assert np.all(length >= 1) and np.all(length <= 32)
+    assert np.all((heads - start[chunk_cell]) % 32 == 0)
+    W = rows.shape[1]
+    out = np.full((seg.n_cells, W), np.nan, np.float32)
+    parts = np.full((seg.n_chunks, W), np.nan, np.float32)
+    for w in range(seg.n_tasks):
+        a, b = np.searchsorted(heads, [32 * w, 32 * w + 32])
+        cs = cs_all[a:b + 1]
+        ja = 0
+        while ja < b - a:
+            p0, jb = cs[ja], ja + 1
+            while jb < b - a and cs[jb + 1] - p0 <= 32:
+                jb += 1
+            nr = cs[jb] - p0
+            assert 0 < nr <= 32
+            buf = rows[order[p0:p0 + nr]].astype(np.float32)
+            firsts = cs[ja:jb] - p0
+            j = np.searchsorted(firsts, np.arange(nr), side="right") - 1
+            q = np.arange(nr) - firsts[j]
+            m = np.append(firsts[1:], nr)[j] - firsts[j]
+            d = 1
+            while d < m.max():
+                left = np.nonzero((q % (2 * d) == 0) & (q + d < m))[0]
+                buf[left] = buf[left] + buf[left + d]
+                d *= 2
+            for j in range(ja, jb):
+                c = chunk_cell[a + j]
+                if cell_chunk[c + 1] - cell_chunk[c] > 1:
+                    parts[a + j] = buf[cs[j] - p0]
+                else:
+                    out[c] = buf[cs[j] - p0]
+            ja = jb
+    for c in range(seg.n_cells):
+        f, n = cell_chunk[c], cell_chunk[c + 1] - cell_chunk[c]
+        if n == 0:
+            out[c] = 0.0
+        elif n > 1:
+            out[c] = _climb_np(parts[f:f + n])
+    return out
 
 
-@pytest.mark.parametrize("name", ["one_cell_holds_every_row", "skewed",
-                                  "empty_cells_and_sentinels"])
-def test_kernel_tiles_are_the_specified_order(name):
-    """The tile arrays `Segments` prepares for the kernel's two passes
-    cover every kept row once, in order, and the two passes give the
-    plain version's sums: one cell of 5,000 rows (20 tiles) beside 300
-    small ones, as a global BA's landmark 0 takes every unobserved slot."""
-    if name == "skewed":
-        rng = np.random.default_rng(9)
-        cell = np.concatenate([np.zeros(5000, np.int64), rng.integers(1, 301, 900)])
-        cell = cell[rng.permutation(cell.shape[0])]
-        rows = rng.normal(size=(cell.shape[0], 3)).astype(np.float32)
+def _schedule_case(name, W):
+    """(cell [E] int64, rows [E, W] f32, n_cells) from a seed."""
+    rng = np.random.default_rng(list(SCHEDULE_CASES).index(name) + 100 * W)
+    if name == "chunk_edges":
+        # cells shorter than a chunk, of one chunk, one past one, of many;
+        # short cells share a warp's window
+        sizes = [1, 2, 31, 32, 33, 0, 63, 64, 65, 3, 700, 1, 1, 5, 96, 129, 0, 17]
+        cell = np.repeat(np.arange(len(sizes)), sizes)
+        n = len(sizes)
+    elif name == "sparse_wide_cells":       # local BA: most cells empty or of one row
+        n = 4096
+        cell = rng.integers(0, n + 1, 2200)
+    elif name == "all_cells_empty":
+        n = 50
+        cell = np.concatenate([np.full(300, n), rng.integers(-9, 0, 100),
+                               rng.integers(n + 1, 3 * n, 100)])
+    elif name == "sentinels":
+        n = 200
+        cell = rng.integers(-3, n + 4, 3000)
+        cell[::5] = n
+    elif name == "skewed":                  # a global BA's landmark 0
         n = 301
-    else:
-        cell, rows, n, _ = _case(name)
+        cell = np.concatenate([np.zeros(50000, np.int64), rng.integers(1, n, 900)])
+    else:                                   # no rows at all
+        n = 7
+        cell = np.zeros(0, np.int64)
+    cell = cell[rng.permutation(cell.shape[0])]
+    rows = (rng.normal(size=(cell.shape[0], W))
+            * 10.0 ** rng.integers(-3, 4, (cell.shape[0], 1)))
+    return cell.astype(np.int64), rows.astype(np.float32), n
+
+
+SCHEDULE_CASES = {"chunk_edges": 54, "sparse_wide_cells": 54, "all_cells_empty": 2,
+                  "sentinels": 49, "skewed": 3, "no_rows": 6}
+
+
+def _check_schedule(cell, rows, n):
     seg = SS.Segments(torch.from_numpy(cell), n)
-    ts = seg.tile_start.numpy()
-    assert seg.tile_start.shape[0] == seg.n_tiles + 1
-    assert np.all(np.diff(ts) >= 0) and np.all(np.diff(ts) <= SS.TILE)
-    assert ts[0] == 0 and ts[-1] == int(seg.start[-1])
-    np.testing.assert_array_equal(_two_passes_np(seg, rows),
-                                  SS.segment_sum(seg, torch.from_numpy(rows)).numpy())
+    got = _kernel_np(seg, rows)
+    plain = SS.segment_sum(seg, torch.from_numpy(rows)).numpy()
+    # equal as values: the plain tree may add +0.0 where the kernel does not
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, _reference_np(cell, rows, n, None))
 
 
-def test_lane_count_follows_the_rows_a_cell():
-    """About 8 rows a lane at the mean, 32 to 1024 lanes a cell; the
-    second pass sums tiles, so 32 lanes serve cells of up to 64k rows."""
-    assert SS._lanes(64000, 20000) == 32
-    assert SS._lanes(2000, 1) == 256
-    assert SS._lanes(10 ** 7, 1) == 1024
-    one = torch.zeros(64000, dtype=torch.long)
-    seg = SS.Segments(one, 30)
-    assert (seg.n_tiles, seg.group) == (280, 32)
-    assert SS.Segments(torch.zeros(10 ** 6, dtype=torch.long), 1).group == 512
+@pytest.mark.parametrize("name", list(SCHEDULE_CASES))
+def test_kernel_schedule_is_the_specified_order(name):
+    """The kernel's schedule (chunk windows, pieces, levels, the last
+    warp's combine) on the tables `Segments` builds gives the plain tree's
+    sums: chunk edges, short cells sharing a warp, sparse wide cells, no
+    kept row, sentinels, one cell of 50,000 rows beside 300 small ones."""
+    _check_schedule(*_schedule_case(name, SCHEDULE_CASES[name]))
+
+
+@pytest.mark.parametrize("width", [2, 3, 6, 42, 49, 54])
+def test_kernel_schedule_at_the_solvers_widths(width):
+    """The same at every width the solvers sum, with a 5,000-row cell
+    (157 chunks: groups of 64, 64 and 29, then one group of three) beside
+    the chunk edges."""
+    cell, rows, n = _schedule_case("chunk_edges", width)
+    big = np.full(5000, n)
+    rng = np.random.default_rng(width)
+    cell = np.concatenate([cell, big])[::-1].copy()
+    rows = np.concatenate([rows, rng.normal(size=(5000, width)).astype(np.float32)])
+    _check_schedule(cell, rows, n + 1)
+
+
+def test_segments_tables_are_sized_without_a_host_read():
+    """`Segments` builds its row records and scratch on the meta device, which holds no values (a host read there raises), at sizes
+    from E and n_cells alone; the scratch grows for a table wider than 64
+    columns only in the wrapper."""
+    for E, n in [(64000, 32), (64000, 16384), (20000, 36864), (2400, 4096), (0, 7),
+                 (100, 0)]:
+        seg = SS.Segments(torch.zeros(E, dtype=torch.long, device="meta"), n)
+        n_chunks = min(E, E // SS.CHUNK + n)
+        n_tasks = -(-E // SS.CHUNK)
+        assert (seg.n_chunks, seg.n_tasks) == (n_chunks, n_tasks)
+        assert seg.records.shape == (E, 4)
+        assert seg.partials.shape == (n_chunks * SS.SCRATCH_COLS,)
+        assert seg.tickets.shape == (n_chunks,)
+        for t in (seg.records, seg.tickets):
+            assert t.dtype == torch.int32
     with pytest.raises(ValueError):
-        SS.segment_sum(seg, torch.zeros((64000, 2), dtype=torch.float64))
+        SS.segment_sum(SS.Segments(torch.zeros(10, dtype=torch.long), 3),
+                       torch.zeros((10, 2), dtype=torch.float64))
 
 
 # ---- ba_solve: the bits of the cell sums it had before the module ----
