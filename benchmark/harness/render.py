@@ -1,0 +1,58 @@
+"""Render a cell's frames from its seed, in a pool of spawned processes.
+
+The frames are 8-bit grayscale, as a camera delivers them. Each worker
+gets the texture once (its initializer) and renders whole frames with one
+BLAS thread; the parent keeps the order. A KITTI-size pair takes 0.15 to
+0.3 s of one core.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+from concurrent.futures import ProcessPoolExecutor
+
+import numpy as np
+
+from harness import scene as S
+
+_SCENE: S.PlaneScene | None = None
+BLAS_THREADS = ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def _init(texture: np.ndarray) -> None:
+    global _SCENE
+    _SCENE = S.PlaneScene(texture)
+
+
+def _render(job) -> np.ndarray:
+    K, poses, height, width = job
+    return np.stack([np.clip(np.rint(_SCENE.render(K, T, height, width)), 0, 255)
+                     .astype(np.uint8) for T in poses])
+
+
+def render_frames(texture: np.ndarray, K: np.ndarray, poses: list, height: int,
+                  width: int) -> np.ndarray:
+    """uint8 [F, V, H, W]: every view (V poses a frame: left, or left and
+    right) of every frame."""
+    n = min(len(poses), os.cpu_count() or 1, 8)
+    jobs = [(K, views, height, width) for views in poses]
+    if n <= 1:
+        _init(texture)
+        return np.stack([_render(j) for j in jobs])
+    # the workers read the BLAS thread counts when they import numpy; an
+    # executor, not a Pool: a worker that dies raises here instead of
+    # leaving the map waiting
+    saved = {k: os.environ.get(k) for k in BLAS_THREADS}
+    os.environ.update({k: "1" for k in BLAS_THREADS})
+    try:
+        with ProcessPoolExecutor(n, mp_context=mp.get_context("spawn"), initializer=_init,
+                                 initargs=(texture,)) as pool:
+            out = list(pool.map(_render, jobs, chunksize=max(1, len(jobs) // (4 * n))))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return np.stack(out)
