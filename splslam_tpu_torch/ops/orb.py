@@ -22,10 +22,12 @@ import torch
 from splslam_tpu_torch.ops.fast import fast_corners, inside_mask
 from splslam_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid
 from splslam_tpu_torch.ops.topk import grid_topk
+from splslam_tpu_torch.trace import Span, span
 
 HALF_PATCH = 15          # orientation patch radius (reference HALF_PATCH_SIZE)
 EDGE_THRESHOLD = 19      # border excluded from detection (reference :47)
 N_BITS = 256
+_DESCRIBE = Span("frame.orb.describe")
 
 
 def make_pattern(seed: int = 7) -> np.ndarray:
@@ -53,6 +55,7 @@ class OrbFeatures(NamedTuple):
         return self.xy.shape[0]
 
 
+@span("frame.orb.detect")
 def detect(
     image: torch.Tensor,
     spec: PyramidSpec,
@@ -102,6 +105,7 @@ def _features(det, spec: PyramidSpec, ang: torch.Tensor,
     return OrbFeatures(*[torch.cat(xs, dim=0) for xs in zip(*outs)])
 
 
+@span("frame.orb")
 def _extract_orb(images, spec: PyramidSpec, threshold: float, cell: int,
                  cell_k: int) -> list[OrbFeatures]:
     """ORB for one or two grayscale images (H,W) f32: detection per image,
@@ -111,9 +115,10 @@ def _extract_orb(images, spec: PyramidSpec, threshold: float, cell: int,
 
     found = [detect(im, spec, threshold, cell, cell_k) for im in images]
     xy = torch.stack([torch.cat([d[1] for d in det]) for _, det in found])
-    ang, desc = orb_describe([levels for levels, _ in found], xy, spec)
-    return [_features(det, spec, ang[b], desc[b])
-            for b, (_, det) in enumerate(found)]
+    with _DESCRIBE:
+        ang, desc = orb_describe([levels for levels, _ in found], xy, spec)
+        return [_features(det, spec, ang[b], desc[b])
+                for b, (_, det) in enumerate(found)]
 
 
 def extract_orb(

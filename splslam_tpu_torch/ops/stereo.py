@@ -31,6 +31,7 @@ from splslam_tpu_torch.ops.match import (
     nn_match,
     octave_mask,
 )
+from splslam_tpu_torch.trace import span
 
 _W = 5      # correlation half-window (11x11 patch, reference w=5)
 _R = 5      # search half-range in scaled pixels (reference L=5)
@@ -75,6 +76,7 @@ def _sample_cols(centers, s, offs, W: int):
     return t0 + torch.clamp(idx - t0, 0, _TILE - 1)
 
 
+@span("frame.stereo")
 def stereo_match(featL, featR, imgL: torch.Tensor, imgR: torch.Tensor,
                  scales: torch.Tensor, bf: float, fx: float):
     """Match left ORB features to right, refine disparity, return depth.
@@ -141,6 +143,7 @@ def stereo_match(featL, featR, imgL: torch.Tensor, imgR: torch.Tensor,
     return u_right, depth
 
 
+@span("frame.stereo")
 def depth_from_rgbd(feat, depth_map: torch.Tensor, bf: float,
                     depth_factor: float = 1.0):
     """RGB-D variant (reference Frame::ComputeStereoFromRGBD): read the

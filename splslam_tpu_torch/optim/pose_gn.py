@@ -21,6 +21,7 @@ import torch
 
 from splslam_tpu_torch.geometry import se3
 from splslam_tpu_torch.geometry.camera import Camera
+from splslam_tpu_torch.trace import span
 
 CHI2_POINT = 5.991   # 2-dof 95% (reference Optimizer.cc:476)
 CHI2_STEREO = 7.815  # 3-dof 95% (reference Optimizer.cc:477 chi2Stereo)
@@ -181,6 +182,7 @@ class PoseOptResult(NamedTuple):
     unit_error: torch.Tensor   # scalar: total chi2 / #inliers
 
 
+@span("track.pose_gn")
 def pose_optimize(
     Tcw0: torch.Tensor,
     cam: Camera,

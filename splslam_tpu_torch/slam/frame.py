@@ -12,6 +12,7 @@ from splslam_tpu_torch.ops.lines import LineFeatures, extract_lines
 from splslam_tpu_torch.ops.orb import OrbFeatures, extract_orb, extract_orb_pair
 from splslam_tpu_torch.ops.pyramid import PyramidSpec
 from splslam_tpu_torch.ops.stereo import depth_from_rgbd, stereo_match
+from splslam_tpu_torch.trace import span
 
 # (backend, n_octaves, min_length) of the line detector: the reference's
 # System.usingLsdFeature, Lineextractor.nLevels and min_line_length_ratio
@@ -32,11 +33,13 @@ class FrameData(NamedTuple):
         return self.feat.capacity
 
 
+@span("frame.lines")
 def _lines(image: torch.Tensor, line_capacity: int, line_cfg: tuple) -> LineFeatures:
     return extract_lines(image, capacity=line_capacity, backend=line_cfg[0],
                          n_octaves=line_cfg[1], min_length=line_cfg[2])
 
 
+@span("frame.build")
 def build_frame_mono(
     image: torch.Tensor,
     cam: Camera,
@@ -66,6 +69,7 @@ def build_frame_mono(
     return FrameData(feat=feat, u_right=minus1, depth=minus1.clone(), lines=lines)
 
 
+@span("frame.build")
 def build_frame_stereo(
     img_left: torch.Tensor,
     img_right: torch.Tensor,
@@ -91,6 +95,7 @@ def build_frame_stereo(
     return FrameData(feat=feat_l, u_right=u_right, depth=depth, lines=lines)
 
 
+@span("frame.build")
 def build_frame_rgbd(
     image: torch.Tensor,
     depth_map: torch.Tensor,

@@ -12,37 +12,17 @@ later frames are logged against; it is the reference's.
 
 from __future__ import annotations
 
-import numpy as np
-import torch
-
 from splslam_tpu_torch.slam import mapping_ops
 from splslam_tpu_torch.slam.mapping_ops import (MAX_KF_CULL, MSTAT_CULL,
                                                 MSTAT_GUARD, MSTAT_LMSING,
                                                 MSTAT_POSE, MSTAT_REVERT)
-
-
-class _HostCopy:
-    """A device vector copied to the host without blocking: pinned memory
-    and an event on a GPU, a plain copy on the CPU."""
-
-    def __init__(self, t: torch.Tensor):
-        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
-        self._host.copy_(t, non_blocking=t.is_cuda)
-        self._event = None
-        if t.is_cuda:
-            self._event = torch.cuda.Event()
-            self._event.record()
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+from splslam_tpu_torch.trace import HostRead
 
 
 class LocalMapper:
     def __init__(self, system):
         self.sys = system
-        self._pending = None     # (_HostCopy of stats, kf, map_version)
+        self._pending = None     # (HostRead of stats, kf, map_version)
         self.big_change_idx = 0  # reference Map::mnBigChangeIdx
         self.n_steps = 0
         # BAResult guard counters summed over the run: transient camera-
@@ -71,7 +51,7 @@ class LocalMapper:
             with_lines=sys.settings.using_line,
             k_bucket=kb,
         )
-        fetch = _HostCopy(stats)
+        fetch = HostRead(stats)
         self.flush()  # consume the PREVIOUS step's bookkeeping first
         self._pending = (fetch, kf_idx, sys.map_version)
         self.big_change_idx += 1
@@ -86,7 +66,7 @@ class LocalMapper:
             return
         fetch, kf, version = self._pending
         self._pending = None
-        v = fetch.numpy()
+        v = fetch.get()
         pose = v[MSTAT_POSE:MSTAT_POSE + 16].reshape(4, 4)
         culled = []
         for i in range(MAX_KF_CULL):

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from splslam_tpu_torch import trace as T
 from splslam_tpu_torch.bow.vocabulary import densify_bow_row, score_rows
 from splslam_tpu_torch.geometry import se3
 from splslam_tpu_torch.ops import match as M
@@ -113,10 +114,11 @@ def compute_sim3_attempt(st: MapState, kf: int, cand: int, K3: torch.Tensor,
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A device-to-host copy of the correction path; it waits for the
-    device. Every such copy goes through here: the essential graph's
-    inputs, the solver counters and the host pose log."""
-    return t.cpu().numpy()
+    """A device-to-host copy of the loop paths (`trace.read`); it waits
+    for the device. Every such copy goes through here: detection's
+    covisibility and scores, verification's counts, and the correction's
+    essential-graph inputs, solver counters and host pose log."""
+    return T.read(t)
 
 
 def _membership_counts(idx: torch.Tensor, ok: torch.Tensor, P: int) -> torch.Tensor:
@@ -336,7 +338,7 @@ class LoopCloser:
             return
         if kf < self.last_loop_kf + 10:  # reference :117 mLastLoopKFid + 10
             return
-        cov = _covisible_mask(sys.map, kf).cpu().numpy()
+        cov = _host(_covisible_mask(sys.map, kf))
         cov[kf] = True
         ids, vals = sys.kf_bow
         query = densify_bow_row(ids, vals, kf, sys.bow_n_words)
@@ -346,10 +348,10 @@ class LoopCloser:
         if not cov_idx:
             return
         rows = torch.tensor(cov_idx, device=ids.device)
-        min_score = float(score_rows(ids[rows], vals[rows], query).min())
-        scores = reloc.reloc_scores(
+        min_score = float(_host(score_rows(ids[rows], vals[rows], query).min()))
+        scores = _host(reloc.reloc_scores(
             ids, vals, sys.map.kfs.valid, query,
-            torch.from_numpy(cov).to(ids.device)).cpu().numpy()[: sys.n_kfs]
+            torch.from_numpy(cov).to(ids.device)))[: sys.n_kfs]
         # Ties go to the higher index, as the reference's host argsort.
         cands = [c for c in np.argsort(scores)[::-1]
                  if scores[c] >= max(min_score, 1e-3)]
@@ -364,7 +366,7 @@ class LoopCloser:
         ready: list[int] = []
         for c in cands[:5]:
             grp = set(np.nonzero(
-                _covisible_mask(sys.map, int(c)).cpu().numpy())[0].tolist())
+                _host(_covisible_mask(sys.map, int(c))))[0].tolist())
             grp |= {int(c)}
             best = 0
             for prev_grp, cnt in self.consistent:
@@ -390,9 +392,11 @@ class LoopCloser:
         # Sim3Solver mbFixScale)
         n_m, n_opt, n_proj, n_grd, S12 = compute_sim3_attempt(
             sys.map, kf, cand, K3, sys.sensor.name != "MONOCULAR", generator=gen)
-        self.n_guarded_verify += int(n_grd)
-        if (int(n_m) < MIN_MATCHES or int(n_opt) < MIN_SIM3_INLIERS
-                or int(n_proj) < MIN_PROJ_MATCHES):
+        n_m, n_opt, n_proj, n_grd = (int(x) for x in _host(torch.stack(
+            [n_m, n_opt, n_proj, n_grd])))
+        self.n_guarded_verify += n_grd
+        if (n_m < MIN_MATCHES or n_opt < MIN_SIM3_INLIERS
+                or n_proj < MIN_PROJ_MATCHES):
             return False
         self.verified_loops.append((kf, cand))
         self.last_loop_kf = kf
@@ -402,6 +406,7 @@ class LoopCloser:
             self._correct(kf, cand, S12)
         return True
 
+    @T.span("loop.correct")
     def _correct(self, kf: int, cand: int, S12):
         """CorrectLoop (reference :404-587, :647-751): pose-graph
         optimization, landmark correction, SearchAndFuse, global BA. `S12`

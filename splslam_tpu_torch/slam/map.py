@@ -262,13 +262,14 @@ def create_stereo_points(
     )
     for table, val in writes:
         buf = torch.cat([table, table[:1]])
-        if isinstance(val, torch.Tensor) and val.dim() > 0:
+        if isinstance(val, torch.Tensor):
             buf[sl] = val.to(table.dtype)
-        else:
-            buf[sl] = torch.as_tensor(val, dtype=table.dtype, device=dev)
+        else:   # filled on the device: a copied Python scalar would wait for it
+            buf[sl] = torch.full((), val, dtype=table.dtype, device=dev)
         table.copy_(buf[:cap])
     new_lm_idx = torch.where(create, slots.to(torch.int32), lm_idx)
-    st.kfs.lm_idx[kf_idx.long()] = new_lm_idx
+    # a 1-d index: a 0-dim one is read back to the host to index with
+    st.kfs.lm_idx[kf_idx.long().reshape(1)] = new_lm_idx[None]
     return st._replace(n_pts=st.n_pts + n_new), new_lm_idx
 
 

@@ -50,6 +50,7 @@ from splslam_tpu_torch.optim.pose_gn import line_coefficients
 from splslam_tpu_torch.slam.map import (KeyFrames, MapState, covisibility_counts,
                                         predict_octave, scale_band)
 from splslam_tpu_torch.slam.pipeline import _stable_top
+from splslam_tpu_torch.trace import span
 
 # Static window geometry (capacities, not behaviour), as the reference's.
 N_WINDOW = 8      # free cameras in local BA (1-ring cap)
@@ -934,6 +935,7 @@ def apply_ba_result(st: MapState, cams: torch.Tensor, lm_ids: torch.Tensor,
     return st
 
 
+@span("map.upkeep")
 def map_upkeep(st: MapState, kf: int, cam: Camera, scales: torch.Tensor,
                scale_factor: float = 1.2, n_levels: int = 8, th_obs: int = 3,
                with_lines: bool = False):
@@ -953,6 +955,7 @@ def map_upkeep(st: MapState, kf: int, cam: Camera, scales: torch.Tensor,
     return st, neighbors
 
 
+@span("map.local_ba")
 def local_ba(st: MapState, kf: int, cam: Camera, scale_factor: float = 1.2,
              n_levels: int = 8, ba_rounds: int = 2, ba_iters: int = 5,
              with_lines: bool = False):

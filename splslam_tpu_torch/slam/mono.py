@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from splslam_tpu_torch import trace as T
 from splslam_tpu_torch.geometry.camera import Camera
 from splslam_tpu_torch.ops import match as M
 from splslam_tpu_torch.optim.ba import BAProblem, ba_solve, ba_solve_arbitrated
@@ -281,8 +282,8 @@ def track_mono_impl(system, image: torch.Tensor, ts: float) -> np.ndarray:
                                  with_lines=st.using_line,
                                  line_capacity=s.line_cap, line_cfg=s.line_cfg)
         use_lines = st.using_line
-        n_feat = int(torch.sum(frame.feat.valid))
-        n_line = int(torch.sum(frame.lines.valid))
+        n_feat = int(T.read(torch.sum(frame.feat.valid)))
+        n_line = int(T.read(torch.sum(frame.lines.valid)))
         # line gates OR'd with the point gates (reference
         # MonocularInitializationBoth, src/Tracking.cc:1164, :1214), scaled
         # to this detector's capacity
@@ -305,11 +306,11 @@ def track_mono_impl(system, image: torch.Tensor, ts: float) -> np.ndarray:
         dev = s.device
         if use_lines:
             m12L, n_ml = match_lines_for_initialization(ref.frame, frame)
-            n_ml = int(n_ml)
+            n_ml = int(T.read(n_ml))
         else:
             m12L = torch.full((Lc,), -1, dtype=torch.int32, device=dev)
             n_ml = 0
-        if int(n_m) < 70 and not (use_lines and n_ml >= 14):
+        if int(T.read(n_m)) < 70 and not (use_lines and n_ml >= 14):
             # too few matches: this frame becomes the new reference
             s.mono_state = _MonoInit(frame, ts, s.frame_id)
             s.frame_id += 1
@@ -330,16 +331,17 @@ def track_mono_impl(system, image: torch.Tensor, ts: float) -> np.ndarray:
                             torch.full((Lc,), 1.0 / 9.0, device=dev)])
         res = two_view_init(draw_init_samples(ok), xy1, xy2, ok, K,
                             inv_sigma2=inv_s2)
-        if not bool(res.ok):
+        ok, used_h = T.read(torch.cat([res.ok.reshape(1), res.used_h.reshape(1)]))
+        if not ok:
             s.frame_id += 1
             return s.last_Tcw_np.copy()
-        s.init_used_h = bool(res.used_h)
+        s.init_used_h = bool(used_h)
         s.map, s.step, out = create_initial_map(
             s.map, ref.frame, frame, m12, res.R21, res.t21,
             res.xyz[:N], res.good[:N] & ok_p, m12L, res.xyz[N:],
             res.good[N:] & ok_l, ref.ts, ts, ref.frame_id, s.frame_id, s.cam,
             scale_factor=st.scale_factor, n_levels=st.n_levels)
-        out = out.cpu().numpy()
+        out = T.read(out)
         s.n_kfs = 2
         s.n_pts = int(out[0])
         s.ref_kf = 1

@@ -29,6 +29,7 @@ from splslam_tpu_torch.slam.frame import (LINE_CFG, FrameData, build_frame_mono,
                                           build_frame_rgbd, build_frame_stereo)
 from splslam_tpu_torch.slam.map import MapState
 from splslam_tpu_torch.slam.tracking import LineWindow, LocalWindow, track_step
+from splslam_tpu_torch.trace import span
 
 # packed stats layout (the reference's)
 S_POSE = slice(0, 16)
@@ -150,6 +151,7 @@ def _temporal_points(prev: StepState, cam: Camera):
             torch.where(synth[:, None], pw, prev.lm_xyz))
 
 
+@span("track.window")
 def _windows(map_state: MapState, prev: StepState, m_local: int, lcap: int):
     """The local point window and (with a line table, capacity > 1) the
     line window from the map and the tracker state `prev`; the point

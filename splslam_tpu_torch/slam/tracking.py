@@ -21,6 +21,7 @@ from splslam_tpu_torch.optim.pose_gn import (LineObs, PointObs, line_coefficient
                                              pose_optimize)
 from splslam_tpu_torch.slam.frame import FrameData
 from splslam_tpu_torch.slam.map import predict_octave
+from splslam_tpu_torch.trace import span
 
 
 class LocalWindow(NamedTuple):
@@ -104,6 +105,7 @@ def _ur_gate(cam: Camera, uv_pred, z, cur_ur, radius):
     return (cur_ur[None, :] < 0) | (err <= radius)
 
 
+@span("track.match")
 def motion_model_match(cam: Camera, scales, T_pred, cur: FrameData, last_octave,
                        last_angle, last_desc, last_lm_xyz, last_lm_ok, th: float):
     """SearchByProjection(cur, last, th): project last frame's landmarks
@@ -123,6 +125,7 @@ def motion_model_match(cam: Camera, scales, T_pred, cur: FrameData, last_octave,
     return mt, md
 
 
+@span("track.match")
 def local_map_match(cam: Camera, scales, Tcw, cur: FrameData, win: LocalWindow,
                     already, scale_factor: float, n_levels: int, th: float = 4.0):
     """SearchLocalPoints + SearchByProjection(F, vpMapPoints): frustum cull
@@ -154,6 +157,7 @@ def local_map_match(cam: Camera, scales, Tcw, cur: FrameData, win: LocalWindow,
     return mt, visible, md
 
 
+@span("track.match")
 def line_projection_match(cam: Camera, Tcw, cur_lines, xyz3_w, desc, avg_len,
                           row_ok, already, perp_r: float = 8.0,
                           ang_tol: float = 0.2, along_slack: float = 48.0,

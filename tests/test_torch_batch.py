@@ -317,7 +317,7 @@ def test_reset_drops_batches_in_flight(scene):
 
 def test_stats_fetch_copies_on_the_cpu():
     stats = torch.arange(2 * TP.STATS_LEN, dtype=torch.float32).reshape(2, -1)
-    fetch = TS._StatsFetch(stats)
+    fetch = TS.HostRead(stats)
     stats.zero_()
     np.testing.assert_array_equal(fetch.get()[1], np.arange(24, 48, dtype=np.float32))
 

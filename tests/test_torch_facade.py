@@ -85,7 +85,8 @@ def test_mono_localization_mode(localization):
 
 def test_device_trace_writes_a_trace(tmp_path):
     """`device_trace` records the block's activities and writes a trace for
-    TensorBoard (here the CPU's activities)."""
+    TensorBoard (here the CPU's activities), with the program's spans of
+    the block added as host events inside the block's time."""
     K, bf, frames, _ = make_stereo_sequence(n_frames=2, motion="forward",
                                             width=320, height=240)
     sysm = TS.System(_settings(K, bf, enable_relocalization=False,
@@ -98,4 +99,12 @@ def test_device_trace_writes_a_trace(tmp_path):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert sum(e["name"] == "frame.build" for e in spans) == 2
+    assert sum(e["name"] == "call.track_stereo" for e in spans) == 2
+    ops = [e for e in events if str(e.get("name", "")).startswith("aten::")
+           and e.get("ph") == "X"]
+    lo = min(e["ts"] for e in spans)
+    hi = max(e["ts"] + e["dur"] for e in spans)
+    assert lo - 1000 <= min(e["ts"] for e in ops) and max(e["ts"] for e in ops) <= hi + 1000
     assert np.isfinite(sysm.poses()).all()

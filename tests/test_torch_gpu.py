@@ -14,7 +14,10 @@ global BA with line edges card against CPU, and a line mapping step and
 a line relocalization attempt that wait for nothing; an RGB-D frame step,
 with and without localization mode's temporal points, card against CPU
 from one CPU-built state and waiting for nothing, one B = 1 launch a
-built RGB-D frame, and `device_trace` recording the card's kernels;
+built RGB-D frame, and `device_trace` recording the card's kernels and
+the program's spans; the span recorder on the card: over a tracked
+frame and a keyframe call no more host syncs than counted `host_reads`,
+and no device twin of a program span under a CUDA profiler;
 batched tracking: `vo_batch_step` (stereo) and `vo_batch_step_mono` card
 against CPU from one CPU-built state with integers equal and one launch
 a frame, a stereo batch that waits for nothing, `track_stereo_batch`
@@ -1151,18 +1154,100 @@ def test_build_frame_rgbd_runs_the_kernel_once(cuda, rgbd_state):
 
 def test_device_trace_records_the_card(cuda, tmp_path):
     """`device_trace` on the card: its TensorBoard trace holds the kernel
-    that ran inside the block."""
+    that ran inside the block, and the program's `frame.build` span of a
+    stereo frame built there as a host event around the frame's kernel."""
     spec, levels, xy = edge_case_inputs(4, 1, seed=0)
     levels = [[torch.from_numpy(x).to(cuda) for x in pyr] for pyr in levels]
     xy = torch.from_numpy(xy).to(cuda)
+    K, bf, frames, _ = make_stereo_sequence(n_frames=1, motion="forward",
+                                            width=320, height=240)
+    sysm = TS.System(_settings(K, bf, enable_relocalization=False,
+                               enable_loop_closing=False), TS.Sensor.STEREO, cuda)
     with TS.device_trace(str(tmp_path)):
         OK.orb_describe(levels, xy, spec)
+        sysm.track_stereo(*frames[0], 0.0)
         torch.cuda.synchronize()
     traces = list(tmp_path.glob("*.pt.trace.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
-    assert any(e.get("cat") == "kernel" and "orb_describe" in e.get("name", "")
-               for e in events)
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and "orb_describe" in e.get("name", "")]
+    assert len(kernels) == 2
+    (build,) = [e for e in events
+                if e.get("cat") == "program_span" and e["name"] == "frame.build"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "")
+                and build["ts"] <= e["ts"] <= build["ts"] + build["dur"]]
+    assert launches
+
+
+def _span_run(cuda, n_frames):
+    """A stereo System on the card, tracked for `n_frames` of five forward
+    frames with a keyframe forced every 2 frames (frame 4 is the call
+    that makes one and runs its mapping step)."""
+    K, bf, frames, _ = make_stereo_sequence(n_frames=5, motion="forward",
+                                            width=320, height=240)
+    sysm = TS.System(_settings(K, bf, force_kf_every=2), TS.Sensor.STEREO, cuda)
+    for i in range(n_frames):
+        sysm.track_stereo(*frames[i], i * 0.1)
+    return sysm, frames
+
+
+def test_host_reads_count_the_syncs(cuda):
+    """Over a tracked stereo frame and a keyframe call (tracking, keyframe
+    insertion, BoW, the mapping step, loop detection), the host syncs
+    torch reports (`set_sync_debug_mode("warn")`) are no more than the
+    program's `host_reads` delta: every wait for the card is a counted
+    read. A first run warms the lazy uploads."""
+    import warnings
+
+    from splslam_tpu_torch import trace as PT
+
+    _span_run(cuda, 5)
+    sysm, frames = _span_run(cuda, 3)
+    torch.cuda.synchronize()
+    reads0, first = PT.RECORDER.host_reads, PT.RECORDER.opened
+    kfs = sysm.n_kfs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in (3, 4):
+                sysm.track_stereo(*frames[i], i * 0.1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    reads = PT.RECORDER.host_reads - reads0
+    names = [r[1] for r in PT.RECORDER.records(first)]
+    print(f"syncs {len(syncs)} {syncs}; host_reads {reads}")
+    assert sysm.n_kfs == kfs + 1 and "map.local_ba" in names
+    assert reads == names.count("host.read") >= 2
+    assert len(syncs) <= reads
+
+
+def test_traced_frame_has_no_span_twins(cuda):
+    """Under a CUDA profiler a traced `track_stereo` records its program
+    spans, and the trace holds no CUDA event named after one: the spans
+    put nothing into the device trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from splslam_tpu_torch import trace as PT
+
+    sysm, frames = _span_run(cuda, 3)
+    torch.cuda.synchronize()
+    first = PT.RECORDER.opened
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sysm.track_stereo(*frames[3], 0.3)
+        torch.cuda.synchronize()
+    names = {r[1] for r in PT.RECORDER.records(first)}
+    assert {"call.track_stereo", "frame.build", "track.pose_gn", "host.read"} <= names
+    events = list(prof.profiler.kineto_results.events())
+    cuda_events = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+    assert len(cuda_events) > 1000
+    assert not [n for n in cuda_events if n in names]
+    assert not [e.name() for e in events if e.name() in names]
 
 
 # ---------------------------------------------------------------------
