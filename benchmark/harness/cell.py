@@ -1,9 +1,10 @@
 """A benchmark cell, found by its name: its entry in `BENCHMARK.json`, its
 configuration (`configs/<config>.json`), its traffic mix
 (`traffic/<traffic>.json`), the limits of its comparison
-(`limits/<workload>.json`) and its per-layer metrics
-(`metrics/<metric>.py`). Adding a cell, a configuration, a mix or a
-metric adds files and entries; nothing here names one.
+(`limits/<workload>.json`), the checks its traffic names
+(`checks/<check>.py`) and its per-layer metrics (`metrics/<metric>.py`).
+Adding a cell, a configuration, a mix, a check or a metric adds files and
+entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -28,9 +29,29 @@ YAML_SETTINGS = {
     "System.usingLsdFeature": "using_lsd", "Lineextractor.nFeatures": "line_features",
     "Lineextractor.nLevels": "line_n_levels",
     "Lineextractor.min_line_length_ratio": "line_min_length_ratio",
+    "Camera.RGB": "rgb", "DepthMapFactor": "depth_map_factor",
 }
 BOOL_FIELDS = {"using_line", "using_lsd"}
-INT_FIELDS = {"width", "height", "n_features", "n_levels", "line_features", "line_n_levels"}
+INT_FIELDS = {"width", "height", "rgb", "n_features", "n_levels", "line_features",
+              "line_n_levels"}
+# Published keys of the line detector that the port's `Settings` has no
+# field for: a configuration carries them as published, and they set nothing.
+UNREAD = frozenset("Lineextractor." + k for k in (
+    "refine", "scale", "sigma_scale", "quant", "ang_th", "log_eps", "density_th", "n_bins",
+    "threshold_length", "threshold_dist", "canny_th1", "canny_th2", "canny_aperture_size",
+    "do_merge"))
+
+
+def _setting(field: str, value):
+    if field in BOOL_FIELDS:
+        return bool(value)
+    if field in INT_FIELDS:
+        return int(value)
+    if field == "depth_map_factor":
+        # depth units -> metres: the reference's mDepthMapFactor = 1 / DepthMapFactor
+        # (Tracking.cc:259), as splslam_tpu_torch/io/config.py reads it
+        return 1.0 / value if abs(value) > 1e-5 else 1.0
+    return float(value)
 
 
 @dataclass
@@ -51,15 +72,21 @@ class Cell:
     def yaml(self) -> dict:
         return self.config["yaml"]
 
+    @property
+    def unread(self) -> list[str]:
+        """The configuration's published keys that the port does not read."""
+        return [k for k in self.yaml if k in UNREAD]
+
     def settings_fields(self) -> dict:
         """Keyword arguments of the port's `Settings`: the configuration's
-        published keys, its system switches and capacities, then the
-        traffic mix's run switches."""
+        published keys (but the unread ones), its system switches and
+        capacities, then the traffic mix's run switches. A key neither
+        read nor unread raises."""
         out = {}
         for key, value in self.yaml.items():
-            field = YAML_SETTINGS[key]
-            out[field] = (bool(value) if field in BOOL_FIELDS
-                          else int(value) if field in INT_FIELDS else float(value))
+            if key not in UNREAD:
+                field = YAML_SETTINGS[key]
+                out[field] = _setting(field, value)
         out.update(self.config.get("system", {}))
         out.update(self.traffic.get("settings", {}))
         return out
@@ -95,10 +122,24 @@ def load(workload: str, bench: dict | None = None) -> Cell:
     )
 
 
-def metric_reader(name: str):
-    """`metrics/<name>.py`, loaded by path (a name may hold dots)."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location("benchmark_metric_" + name.replace(".", "_"), path)
+def _module(folder: str, name: str):
+    """`<folder>/<name>.py`, loaded by path (a name may hold dots)."""
+    path = HERE / folder / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {folder} file for {name!r}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_{folder}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_reader(name: str):
+    """`metrics/<name>.py`: `read(ctx)`, a per-layer metric's value or None."""
+    return _module("metrics", name)
+
+
+def check(name: str):
+    """`checks/<name>.py`: `read(cell, scene, out, control)`, the numbers a
+    check compares, the program's or its control's in the program's place."""
+    return _module("checks", name)

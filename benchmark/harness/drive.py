@@ -1,10 +1,12 @@
 """The closed loop every cell runs: one camera, one caller that hands over
 the next frame when the last call has returned.
 
-A traffic mix names the entry (`track_stereo` or `track_stereo_batch`),
-the scene and its replay, the System switches of the run, the warm-up,
-and how many calls of a traced run the profiler covers. Rendering,
-staging and warm-up are set-up; the window holds only tracking calls.
+A configuration names its sensor (`SENSORS`: the views a frame renders,
+and whether it carries depth); a traffic mix names the entry (one of the
+System's public entries, `ENTRIES`), the scene and its replay, the System
+switches of the run, the warm-up, and how many calls of a traced run the
+profiler covers. Rendering, staging and warm-up are set-up; the window
+holds only tracking calls.
 Each call's wall runs from its start to a `torch.cuda.synchronize()`
 after it returns, so it holds the call's device work. A batched window
 ends with the deferred stats drained.
@@ -19,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
+from collections.abc import Callable
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -31,6 +34,31 @@ from harness import trace as T
 CALL_SPAN = "benchmark.call"     # the profiler's label of each traced call
 
 
+@dataclass(frozen=True)
+class SensorKind:
+    member: str                      # the port's `Sensor` member
+    views: Callable                  # (Twc, published keys) -> the poses a frame renders
+    depth: bool                      # whether a frame carries its depth image
+
+
+# A configuration's "sensor", by name.
+SENSORS = {
+    "stereo": SensorKind(
+        "STEREO", lambda Twc, y: [Twc, S.right_pose(Twc, y["Camera.bf"] / y["Camera.fx"])],
+        False),
+    "monocular": SensorKind("MONOCULAR", lambda Twc, y: [Twc], False),
+    "rgbd": SensorKind("RGBD", lambda Twc, y: [Twc], True),
+}
+
+# The System's public entries, by the name a traffic mix gives. A frame
+# entry takes a frame's inputs (its views, then an RGB-D frame's depth) and
+# its timestamp. A batch entry takes B frames' views staged on the device as
+# one uint8 tensor ([B, V, H, W], or [B, H, W] for one view) and their
+# timestamps; its value is the frame entry that bootstraps the map.
+ENTRIES = {"track_stereo": None, "track_mono": None, "track_rgbd": None,
+           "track_stereo_batch": "track_stereo", "track_mono_batch": "track_mono"}
+
+
 @dataclass
 class Scene:
     K: np.ndarray
@@ -38,12 +66,18 @@ class Scene:
     poses: np.ndarray     # [F, 4, 4] the camera-to-world pose of each
     order: np.ndarray     # the replay order of the rendered frames
     fps: float
+    depth: np.ndarray | None = None   # float32 [F, H, W] in the sensor's units, or None
 
     def index(self, i: int) -> int:
         return int(self.order[i % len(self.order)])
 
     def views(self, i: int) -> np.ndarray:
         return self.images[self.index(i)]
+
+    def inputs(self, i: int) -> tuple:
+        """What a frame entry takes for frame i before its timestamp."""
+        k = self.index(i)
+        return tuple(self.images[k]) + (() if self.depth is None else (self.depth[k],))
 
     def gt(self, i: int) -> np.ndarray:
         return self.poses[self.index(i)]
@@ -57,20 +91,23 @@ class Scene:
 
 def build_scene(cell, seed: int) -> Scene:
     """The cell's frames, rendered from `seed` at its configuration's
-    published intrinsics."""
+    published intrinsics and distortion, with the views (and depth) its
+    sensor takes."""
     y, sc = cell.yaml, cell.traffic["scene"]
-    if cell.sensor != "stereo":
-        raise ValueError(f"no scene for a {cell.sensor!r} sensor")
+    kind = SENSORS[cell.sensor]
     K = S.make_K(y["Camera.fx"], y["Camera.fy"], y["Camera.cx"], y["Camera.cy"])
     H, W = int(y["Camera.height"]), int(y["Camera.width"])
-    tex = (S.make_grid_texture if sc["texture"] == "grid" else S.make_texture)(seed=seed)
+    dist = np.array([y.get(f"Camera.{k}", 0.0) for k in ("k1", "k2", "p1", "p2", "k3")])
+    tex = S.TEXTURES[sc["texture"]](seed=seed)
     poses = S.camera_path(sc["motion"], sc["frames"], osc_amp=sc.get("osc_amp", 0.5),
                           period=sc.get("period"))
-    baseline = y["Camera.bf"] / y["Camera.fx"]
-    images = render.render_frames(tex, K, [(Twc, S.right_pose(Twc, baseline)) for Twc in poses],
-                                  H, W)
+    # an RGB-D frame's depth in the sensor's units: metres / the System's factor
+    depth_scale = (1.0 / cell.settings_fields().get("depth_map_factor", 1.0) if kind.depth
+                   else None)
+    images, depth = render.render_frames(tex, K, [kind.views(Twc, y) for Twc in poses], H, W,
+                                         dist, depth_scale)
     order = S.shuttle(poses) if sc["loop"] == "shuttle" else np.arange(len(poses))
-    return Scene(K, images, poses, order, float(y["Camera.fps"]))
+    return Scene(K, images, poses, order, float(y["Camera.fps"]), depth)
 
 
 @dataclass
@@ -158,8 +195,11 @@ class Loop:
         self.cell, self.scene = cell, scene
         self.device = torch.device(device)
         self.entry = cell.traffic["entry"]
+        if self.entry not in ENTRIES:
+            raise ValueError(f"unknown entry {self.entry!r}")
         self.batch = int(cell.traffic.get("batch", 1))
-        self.sys = System(Settings(**cell.settings_fields()), Sensor.STEREO, self.device)
+        self.sys = System(Settings(**cell.settings_fields()),
+                          Sensor[SENSORS[cell.sensor].member], self.device)
         self.next = 0
         self.sample = Reservoir(int(cell.traffic.get("sample_frames", 6)), seed)
         self.traced_valid: list = []    # the keypoint masks of the traced calls' frames
@@ -169,39 +209,56 @@ class Loop:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _call(self) -> tuple[int, int]:
-        """Hand over the next frame (or batch); (its last frame, frames)."""
+    def _call(self, entry: str | None = None) -> tuple[int, int]:
+        """Hand over the next frame (or batch) to `entry`, by default the
+        traffic's; (its last frame, frames)."""
+        entry = entry or self.entry
         i, s, sc = self.next, self.sys, self.scene
-        if self.entry == "track_stereo":
-            left, right = sc.views(i)
-            s.track_stereo(left, right, sc.ts(i))
+        if ENTRIES[entry] is None:
+            getattr(s, entry)(*sc.inputs(i), sc.ts(i))
             n = 1
-        elif self.entry == "track_stereo_batch":
-            n = self.batch
-            s.track_stereo_batch(self.staged[i % len(sc.order)],
-                                 [sc.ts(j) for j in range(i, i + n)])
         else:
-            raise ValueError(f"unknown entry {self.entry!r}")
+            n = self.batch
+            getattr(s, entry)(self.staged[i % len(sc.order)], [sc.ts(j) for j in range(i, i + n)])
         self.next += n
         return i + n - 1, n
 
+    def _stage(self, i: int) -> torch.Tensor:
+        """Frames i to i + B - 1 as a batch entry takes them, copied to the
+        device from pinned memory without waiting."""
+        sc = self.scene
+        views = np.stack([sc.views(j) for j in range(i, i + self.batch)])
+        t = torch.from_numpy(np.ascontiguousarray(views[:, 0] if views.shape[1] == 1 else views))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    @property
+    def initialized(self) -> bool:
+        """Whether the System has made its map (a monocular one needs a
+        two-view initialization)."""
+        from splslam_tpu_torch.slam.system import TrackingState
+
+        return self.sys.state not in (TrackingState.NO_IMAGES_YET,
+                                      TrackingState.NOT_INITIALIZED)
+
     def warm_up(self) -> None:
         """The set-up the traffic needs before the window: the first
-        frames (the map, its first keyframes and mapping steps), or the
-        staged batches."""
+        frames (the map, its first keyframes and mapping steps), or, for a
+        batch entry, the frames its frame entry needs to make the map, the
+        staged batches and the warm-up batches."""
         t = self.cell.traffic
         s = self.sys
-        if self.entry == "track_stereo_batch":
+        bootstrap = ENTRIES[self.entry]
+        if bootstrap is not None:
             n, B = len(self.scene.order), self.batch
             if n % B:
                 raise ValueError(f"a replay of {n} frames is not whole batches of {B}")
-            left, right = self.scene.views(0)
-            s.track_stereo(left, right, 0.0)
-            self.next = 1
+            while not self.initialized and self.next < n:
+                self._call(bootstrap)
             for k in range(n // B):
-                i = 1 + k * B
-                self.staged[i % n] = s.upload_batch(
-                    [tuple(self.scene.views(j)) for j in range(i, i + B)])
+                i = self.next + k * B
+                self.staged[i % n] = self._stage(i)
             for _ in range(int(t.get("warmup_batches", 0))):
                 self._call()
             s.drain()

@@ -7,7 +7,11 @@ of `splslam_tpu_torch/bench/stereo.py` at the same commit. The rendering arithme
 that a configuration's published intrinsics (fx, fy, cx, cy, the stereo
 baseline from bf / fx) place the camera, and so that the oscillation can
 be made periodic in a whole number of frames, which a replayed loop
-needs. Imports numpy and scipy only: the render pool's workers load it.
+needs; so that a published radial-tangential distortion bends the image as
+the camera would (`undistort_pixels`, the harness's own NumPy inverse of
+the reference's model, never the port's); so that a frame can carry its
+camera-frame depth; and with a texture-free plane. Imports numpy and
+scipy only: the render pool's workers load it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,18 @@ def make_grid_texture(size: int = TEXTURE_SIZE, seed: int = 0,
     return t.astype(np.float32)
 
 
+def make_flat_texture(size: int = TEXTURE_SIZE, seed: int = 0) -> np.ndarray:
+    """One grey level everywhere: nothing for a detector to find."""
+    return np.full((size, size), 128.0, np.float32)
+
+
+# a traffic mix's scene "texture", by name
+TEXTURES = {"blobs": make_texture, "grid": make_grid_texture, "flat": make_flat_texture}
+
+UNDISTORT_TOL_PX = 1e-3
+UNDISTORT_MAX_ITERS = 100
+
+
 def make_K(fx: float, fy: float, cx: float, cy: float) -> np.ndarray:
     return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
 
@@ -58,6 +74,7 @@ class PlaneScene:
         self.z0 = z0
         self.z1 = z1
         self.ppu = px_per_unit
+        self._rays: dict = {}      # the undistorted pixel grid of each camera
 
     def near_mask(self, K: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
         """Which pixels see the near plane (z0)."""
@@ -82,13 +99,51 @@ class PlaneScene:
         p1, t1 = plane(self.z1)
         return np.where(sel[:, None], p0, p1), np.where(sel, t0, t1)
 
-    def render(self, K: np.ndarray, Twc: np.ndarray, height: int, width: int) -> np.ndarray:
+    def render(self, K: np.ndarray, Twc: np.ndarray, height: int, width: int,
+               dist: np.ndarray | None = None, depth: bool = False):
+        """The image from pose Twc; with `dist` (k1, k2, p1, p2, k3) not all
+        zero, each pixel sees along the ray of its undistorted position;
+        with `depth`, (image, the camera-frame depth each pixel sees)."""
         us, vs = np.meshgrid(np.arange(width), np.arange(height))
-        p, _ = self.hit(K, Twc, us.reshape(-1), vs.reshape(-1))
+        u, v = us.reshape(-1), vs.reshape(-1)
+        if dist is not None and np.any(dist):
+            key = (height, width, K.tobytes(), np.asarray(dist, np.float64).tobytes())
+            if key not in self._rays:
+                self._rays[key] = undistort_pixels(K, dist, u, v)
+            u, v = self._rays[key]
+        p, t = self.hit(K, Twc, u, v)
         tx = p[:, 0] * self.ppu + self.tex.shape[1] / 2
         ty = p[:, 1] * self.ppu + self.tex.shape[0] / 2
         img = map_coordinates(self.tex, [ty, tx], order=1, mode="wrap")
-        return img.reshape(height, width).astype(np.float32)
+        img = img.reshape(height, width).astype(np.float32)
+        return (img, t.reshape(height, width)) if depth else img
+
+
+def distort(dist: np.ndarray, x: np.ndarray, y: np.ndarray):
+    """The reference's radial-tangential model (OpenCV's; k1, k2, p1, p2,
+    k3) on normalized coordinates."""
+    k1, k2, p1, p2, k3 = dist
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    return (x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x),
+            y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y)
+
+
+def undistort_pixels(K: np.ndarray, dist: np.ndarray, u: np.ndarray, v: np.ndarray):
+    """The undistorted pixel positions of distorted pixels (u, v): the
+    model inverted by fixed-point iteration until it maps each back to
+    within `UNDISTORT_TOL_PX`; raises where it does not converge."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    xd, yd = (u - cx) / fx, (v - cy) / fy
+    x, y = xd, yd
+    for _ in range(UNDISTORT_MAX_ITERS):
+        ex, ey = distort(dist, x, y)
+        ex, ey = ex - xd, ey - yd
+        if max(np.max(np.abs(ex)) * fx, np.max(np.abs(ey)) * fy) < UNDISTORT_TOL_PX:
+            return x * fx + cx, y * fy + cy
+        x, y = x - ex, y - ey
+    raise ValueError(f"the undistortion did not converge to {UNDISTORT_TOL_PX} px in "
+                     f"{UNDISTORT_MAX_ITERS} iterations")
 
 
 def camera_path(motion: str, n_frames: int, osc_amp: float = 0.5,

@@ -4,7 +4,7 @@
 
 For each seed, in one process: the cell's set-up and a window at its own
 load, then the numbers the cell compares, for the program and for the
-control put in its place (`harness/compare.py` names both). One JSON line
+control put in its place (`checks/<name>.py` names both). One JSON line
 a seed on standard output. The benchmark's own runs do not run this.
 """
 

@@ -6,16 +6,19 @@ From the root of a checkout, on a machine with the cards the cell asks
 for. Set-up (imports, CUDA, the kernels, the scene rendered from the
 seed, the System, the warm-up the traffic needs) is timed as `setup_s`;
 then the cell's closed loop runs for `--seconds`; then the program's
-answers are compared with the references (`harness/compare.py`). The
-last line of standard output is the result as one JSON object: with
-`--trace 0` the cell's end-to-end metrics, with `--trace 1` its
-per-layer metrics and the breakdown of the traced window. The numbers
-compared, each beside its limit, end both standard error and the result.
+answers are compared with the references (`harness/compare.py` and the
+checks under `checks/`). The last line of standard output is the result
+as one JSON object: with `--trace 0` the cell's end-to-end metrics, with
+`--trace 1` its per-layer metrics and the breakdown of the traced window.
+The numbers compared, each beside its limit, end both standard error and
+the result.
 
 Exits 2 without a result where there is no CUDA card or fewer than the
 cell asks for, 3 where the process holds JAX or the JAX package, 4
-where the map reached a capacity inside the window, and 5 where
-`BENCHMARK.json` names no such workload.
+where the map reached a capacity inside the window, 5 where
+`BENCHMARK.json` names no such workload, and 6 where the map did not
+initialize in warm-up (a monocular System without its two-view
+initialization), so that an uninitialized System is never timed.
 """
 
 import time
@@ -32,7 +35,7 @@ from pathlib import Path  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "splslam_tpu")
-NO_CARD, HOLDS_JAX, AT_CAPACITY, NO_WORKLOAD = 2, 3, 4, 5
+NO_CARD, HOLDS_JAX, AT_CAPACITY, NO_WORKLOAD, NOT_INITIALIZED = 2, 3, 4, 5, 6
 
 
 class RunError(RuntimeError):
@@ -91,6 +94,9 @@ def setup(cell, seed: int, device, t_start: float):
     mark("system")
     loop.warm_up()
     mark("warm_up")
+    if not loop.initialized:
+        raise RunError(NOT_INITIALIZED, "the map did not initialize in warm-up "
+                       f"(System state {loop.sys.state.name})")
     return loop, split
 
 

@@ -11,6 +11,20 @@ sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
 from harness import cell as C  # noqa: E402
 
+# the repo's copies of the reference's published YAMLs
+YAMLS = BENCH.parent / "splslam_tpu" / "examples" / "configs"
+
+
+def published(path) -> dict:
+    """A reference YAML's flat `key: value` lines, as published."""
+    out = {}
+    for line in path.read_text().splitlines():
+        line = line.split("#")[0].strip()
+        if line and not line.startswith("%"):
+            key, value = (x.strip() for x in line.split(":", 1))
+            out[key] = int(value) if value.lstrip("-").isdigit() else float(value)
+    return out
+
 
 
 def small_cell(workload: str, frames: int = 24):

@@ -3,7 +3,8 @@
 The controls (the reference in the program's place, one precision below,
 or its answers one frame late) and the faults a cell can
 have, each planted under a run that skips the harness's look for a card,
-must come out not correct against each cell's own limits. The same readings at the cells' own
+must come out not correct against each cell's own limits, through the
+check files its traffic names. The same readings at the cells' own
 sizes on the card are taken by `readings.py`.
 """
 
@@ -38,16 +39,18 @@ def test_control_is_not_correct(measured, workload):
 
 
 def test_bfloat16_reference_moves_both_orb_numbers():
+    from harness import cell as C
     from reference import orb as RO
 
+    orb_gaps = C.check("orb").orb_gaps
     rng = np.random.default_rng(5)
     img = (rng.uniform(0, 255, (96, 128)).astype(np.float32))
     from scipy.ndimage import gaussian_filter
 
     img = np.clip(gaussian_filter(img, 1.5) * 3 - 250, 0, 255).astype(np.uint8)
     ref = RO.extract(img, 300, 3, 1.2)
-    assert compare.orb_gaps([(ref, ref)]) == (0.0, 0.0)
-    kp, bits = compare.orb_gaps([(RO.extract(img, 300, 3, 1.2, dtype=torch.bfloat16), ref)])
+    assert orb_gaps([(ref, ref)]) == (0.0, 0.0)
+    kp, bits = orb_gaps([(RO.extract(img, 300, 3, 1.2, dtype=torch.bfloat16), ref)])
     assert kp > 0 and bits > 0
 
 

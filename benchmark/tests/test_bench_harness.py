@@ -7,11 +7,11 @@ import re
 import time
 
 import pytest
-from conftest import BENCH, small_cell
+from conftest import BENCH, YAMLS, published, small_cell
 
 import run as R
 from harness import cell as C
-from harness import drive, stats
+from harness import compare, drive, stats
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -84,10 +84,11 @@ def test_unknown_workload_no_result(capsys):
 
 
 def test_new_files_are_found_by_name(tmp_path, monkeypatch):
-    """A configuration, a traffic mix, a cell's limits and a per-layer
-    metric added as new files, with new BENCHMARK.json entries only."""
+    """A configuration, a traffic mix, a cell's limits, a check and a
+    per-layer metric added as new files, with new BENCHMARK.json entries
+    only; and a monocular configuration with its YAML as published."""
     bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
-    for sub in ("configs", "traffic", "limits", "metrics"):
+    for sub in ("configs", "traffic", "limits", "checks", "metrics"):
         (tmp_path / "benchmark" / sub).mkdir(parents=True)
     src = json.loads((BENCH / "configs" / "kitti_stereo.json").read_text())
     (tmp_path / "benchmark" / "configs" / "new_config.json").write_text(json.dumps(src))
@@ -97,8 +98,17 @@ def test_new_files_are_found_by_name(tmp_path, monkeypatch):
     (tmp_path / "benchmark" / "limits" / "new_config.new_mix.json").write_text('{"pose_err_m": 1}')
     (tmp_path / "benchmark" / "metrics" / "new.metric.py").write_text(
         'LAYER = "device"\n\ndef read(ctx):\n    return 42.0\n')
+    (tmp_path / "benchmark" / "checks" / "new.check.py").write_text(
+        'def read(cell, scene, out, control):\n    return {"new_err": float(control)}\n')
+    mono = dict(src, name="new_mono", sensor="monocular",
+                yaml=published(YAMLS / "Monocular" / "TUM1.yaml"))
+    (tmp_path / "benchmark" / "configs" / "new_mono.json").write_text(json.dumps(mono))
+    (tmp_path / "benchmark" / "traffic" / "new_mono_mix.json").write_text(
+        json.dumps(dict(traffic, entry="track_mono", checks=["new.check"])))
     bench["workloads"].append({"name": "new_config.new_mix", "config": "new_config",
                                "traffic": "new_mix", "chips": 1, "why": "a test"})
+    bench["workloads"].append({"name": "new_mono.new_mono_mix", "config": "new_mono",
+                               "traffic": "new_mono_mix", "chips": 1, "why": "a test"})
     bench["per_layer"].append({"name": "new.metric", "unit": "ms", "better": "lower",
                                "source": "host_clock", "layer": "device",
                                "moves": "frames_per_s", "workloads": ["new_config.new_mix"]})
@@ -111,6 +121,14 @@ def test_new_files_are_found_by_name(tmp_path, monkeypatch):
     assert cell.settings_fields()["force_kf_every"] == 10
     assert "new.metric" in [m["name"] for m in cell.per_layer]
     assert C.metric_reader("new.metric").read(None) == 42.0
+    cell = C.load("new_mono.new_mono_mix")
+    assert cell.sensor == "monocular" and drive.SENSORS[cell.sensor].member == "MONOCULAR"
+    assert cell.traffic["entry"] in drive.ENTRIES
+    fields = cell.settings_fields()
+    assert fields["using_line"] is True and fields["line_features"] == 600 and fields["k3"] != 0
+    assert "Lineextractor.do_merge" in cell.unread
+    assert compare.numbers(cell, None, None) == {"new_err": 0.0}
+    assert compare.numbers(cell, None, None, control=True) == {"new_err": 1.0}
 
 
 @pytest.mark.parametrize("names,held", [
@@ -154,7 +172,10 @@ def test_rate_and_tail_arithmetic():
     assert stats.frames_per_s(len(calls), window_s) == pytest.approx(201 / 33.0)
     # rank 0.95 * 200 = 190: the first 900 ms call
     assert stats.p95_ms(calls) == pytest.approx(900.0)
-    assert stats.p95_ms(calls[:199]) is None
+    # a short window (a slow host) still reports the tail of all its calls
+    assert stats.p95_ms(calls[:148]) == pytest.approx(100.0)
+    assert stats.p95_ms(calls[-20:]) == pytest.approx(900.0 + 0.05 * 4100.0)
+    assert stats.p95_ms([]) is None
     assert stats.median_ms(calls) == 100.0
     with pytest.raises(ValueError):
         stats.frames_per_s(3, 0.0)
